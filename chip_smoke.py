@@ -83,18 +83,31 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 def aggregate_bound(x, att, basis, aligned):
     """Least time (ms) for one aggregate call on this card, from this call's
-    inputs: each input read once and the output written once, against the
-    2*E*B*Cin*Cout float32 operations of its real (unmasked) edges."""
+    inputs: the larger of its bytes over the memory rate and its float32
+    operations over the CUDA-core rate, counting the least work the
+    function needs, not K1's way of doing it.
+
+    Operations: fold W_r = att @ basis once (2*R*B*Cin*Cout), then either
+    one [Cin] x [Cin, Cout] product per real edge (2*E*Cin*Cout) or one per
+    node and relation plus a gather-sum (2*N*R*Cin*Cout + E*Cout), whichever
+    is less. Bytes: the mask over every slot, src, dst_local and etype over
+    the real edges, chunk_of_block, x, att and basis read once, the output
+    written once. Also returns the operations of K1's basis-mix form
+    (2*E*B*Cin*Cout), for comparison."""
     src, _, _, mask, chunk_of_block = aligned[:5]
     nb, cin, cout = basis.shape
-    n = x.shape[0]
+    n, nrel = x.shape[0], att.shape[0]
     e_real = int(mask.sum().item())
-    flops = 2.0 * e_real * nb * cin * cout
-    nbytes = 4.0 * (x.numel() + att.numel() + basis.numel() + 4 * src.numel()
-                    + chunk_of_block.numel() + n * cout)
+    flops = (min(2.0 * e_real * cin * cout, 2.0 * n * nrel * cin * cout
+                 + e_real * cout) + 2.0 * nrel * nb * cin * cout)
+    basis_mix_flops = 2.0 * e_real * nb * cin * cout
+    nbytes = 4.0 * (mask.numel() + 3 * e_real + chunk_of_block.numel()
+                    + x.numel() + att.numel() + basis.numel() + n * cout)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            e_real, flops, nbytes)
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                e_real=e_real, flops=flops, nbytes=nbytes,
+                basis_mix_ms=1e3 * basis_mix_flops / PEAK_F32_FLOP_PER_S)
 
 
 def main() -> None:
@@ -113,7 +126,7 @@ def main() -> None:
     from igmc_torch.batching import BatchLoader, StaticGraphDataset
     from igmc_torch.data import create_trainvaltest_split
     from igmc_torch.device import resolve_device, tf32_enabled
-    from igmc_torch.kernels.build import KERNELS, build
+    from igmc_torch.kernels.build import build
     from igmc_torch.kernels.rgcn_aggregate import (
         block_align_edges, rgcn_aggregate, rgcn_aggregate_ref)
     from igmc_torch.models import IGMC, IGMCConfig
@@ -130,15 +143,14 @@ def main() -> None:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    paths = build(KERNELS)
-    print(f"[build] {len(paths)} kernel(s) built or found in "
+    path = build("rgcn_aggregate_fwd")
+    print(f"[build] rgcn_aggregate_fwd built or found in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, path in paths.items():
-        log = path + ".log"
-        report = open(log).read() if os.path.isfile(log) else ""
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    log = path + ".log"
+    report = open(log).read() if os.path.isfile(log) else ""
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] rgcn_aggregate_fwd: {line.strip()}")
     sys.stdout.flush()
 
     # ---- 3. data -----------------------------------------------------------
@@ -232,15 +244,15 @@ def main() -> None:
                 with torch.no_grad():
                     ms = cuda_ms(lambda: rgcn_aggregate(x, att, basis, aligned, 256, N), 50)
                     plain_ms = cuda_ms(lambda: rgcn_aggregate_ref(x, att, basis, aligned, 256, N), 20)
-                bound_ms, bound_by, e_real, flops, nbytes = aggregate_bound(
-                    x, att, basis, aligned)
-                results[cin] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, e_real=e_real,
-                                    ep=int(aligned[0].numel()))
+                bnd = aggregate_bound(x, att, basis, aligned)
+                results[cin] = dict(ms=ms, plain_ms=plain_ms,
+                                    ep=int(aligned[0].numel()), **bnd)
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} "
-                         f"FLOP, {nbytes:.3e} B; {e_real} real of "
-                         f"{aligned[0].numel()} edge slots, N {N})")
+                         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
+                         f"{bnd['flops']:.3e} FLOP, {bnd['nbytes']:.3e} B; "
+                         f"{bnd['e_real']} real of {aligned[0].numel()} edge "
+                         f"slots, N {N}); K1's basis-mix FLOP alone "
+                         f"{bnd['basis_mix_ms']:.4f} ms")
             print(line, flush=True)
 
     # ---- 5. main path ------------------------------------------------------
@@ -361,6 +373,8 @@ def main() -> None:
         "shape": (f"ML-1M batch 0: N {N}, {r32['e_real']} real of {r32['ep']} "
                   f"edge slots, Cin 32, Cout {COUT}, B {B}, R {R}"),
         "cin4": {k: results[4][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "basis_mix_ms": {"cin32": r32["basis_mix_ms"],
+                         "cin4": results[4]["basis_mix_ms"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -25,7 +25,8 @@ import torch
 
 from ..graphs.csr import BipartiteCSR
 from ..graphs.extract import Subgraph, extract_many
-from ..kernels.rgcn_aggregate import block_align_edges, plan_capacity_blocks
+from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_edges,
+                                      plan_capacity_blocks)
 from .batch import GraphBatch, bucket_for, collate, pad_ladder, topk_sum_bound
 
 
@@ -123,22 +124,14 @@ class BatchLoader:
 
     Yields CPU GraphBatches whose (node_pad, edge_pad) come from geometric
     ladders up to the dataset's worst-case batch; node_pad is rounded up to
-    a multiple of `plan_rows` (the kernel's output chunk), and the plan is
+    a multiple of PLAN_ROWS (the kernel's output chunk), and the plan is
     sized by plan_capacity_blocks so every batch of one bucket has the same
     plan shape.
     """
 
-    def __init__(
-        self,
-        dataset: StaticGraphDataset,
-        batch_size: int,
-        plan_rows: int = 256,
-        plan_eblk: int = 1024,
-    ):
+    def __init__(self, dataset: StaticGraphDataset, batch_size: int):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.plan_rows = plan_rows
-        self.plan_eblk = plan_eblk
         # ladders up to the worst-case batch of the dataset: no batch
         # overflows them
         max_n, max_e = topk_sum_bound(dataset.node_counts(),
@@ -154,14 +147,13 @@ class BatchLoader:
         node_pad = bucket_for(sum(g.num_nodes for g in graphs), self.node_ladder)
         edge_pad = bucket_for(sum(g.num_edges for g in graphs), self.edge_ladder)
         # the kernel's output chunking needs num_nodes % rows == 0
-        node_pad = -(-node_pad // self.plan_rows) * self.plan_rows
+        node_pad = -(-node_pad // PLAN_ROWS) * PLAN_ROWS
         batch = collate(graphs, self.batch_size, node_pad, edge_pad)
-        nb = plan_capacity_blocks(node_pad, edge_pad, self.plan_rows,
-                                  self.plan_eblk)
+        nb = plan_capacity_blocks(node_pad, edge_pad, PLAN_ROWS, PLAN_EBLK)
         plan = block_align_edges(
             batch.edge_src.numpy(), batch.edge_dst.numpy(),
             batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad,
-            eblk=self.plan_eblk, rows=self.plan_rows, num_blocks=nb)
+            eblk=PLAN_EBLK, rows=PLAN_ROWS, num_blocks=nb)
         batch.aligned = tuple(torch.from_numpy(a) for a in plan[:6])
         return batch
 

@@ -3,9 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `kernels/build/lib<name>-<hash>.so`, where the hash covers the
 source and the compiler flags: an edited source rebuilds, an unchanged one
-loads the library already built. Every missing library is compiled at
-once, one nvcc process per source, all started together. The ptxas report
-(registers, shared memory, spills) is kept beside each library as `.log`.
+loads the library already built. The ptxas report (registers, shared
+memory, spills) is kept beside each library as `.log`.
 
 nvcc is found through CUDA_HOME (or CUDA_PATH), then PATH, then PyTorch's
 own idea of the CUDA home. Nothing here runs at import time.
@@ -19,12 +18,10 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-
-KERNELS = ("rgcn_aggregate_fwd",)
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -56,42 +53,32 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every library of `names` not built yet; returns name -> path.
-
-    Raises RuntimeError with nvcc's output if any compile fails."""
-    paths = {name: library_path(name) for name in names}
-    todo = {n: p for n, p in paths.items() if not os.path.isfile(p)}
-    if not todo:
-        return paths
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless it is built already; returns the
+    library's path. Raises RuntimeError with nvcc's output if it fails."""
+    path = library_path(name)
+    if os.path.isfile(path):
+        return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for name, path in todo.items():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        with open(todo[name] + ".log", "w") as f:
-            f.write(log)
-        os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
-    return paths
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"CUDA kernel build failed: nvcc {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    with open(path + ".log", "w") as f:
+        f.write(proc.stdout)
+    os.replace(tmp, path)
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library `name`, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
+        lib = ctypes.CDLL(build(name))
         _loaded[name] = lib
     return lib

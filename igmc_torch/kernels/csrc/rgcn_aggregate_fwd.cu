@@ -9,11 +9,15 @@
 // messages ([num_nodes, Cout] float32; the mean divides by the degree
 // outside).
 //
-// What bounds it on this card: at IGMC's widths (B = 4 bases, Cin 4 or 32,
-// Cout 32) an edge costs 2*B*Cin*Cout = 8 KFLOP against ~16 bytes of
-// index/mask and one 4*Cin-byte row gather, so the work is arithmetic on
-// the float32 CUDA cores (67 TFLOP/s peak) rather than device memory
-// (3.35 TB/s); the gathers hit L2 (x is a few MB at most).
+// What bounds it on this card: the function itself is bound by device
+// memory (3.35 TB/s). Folding W_r = att @ basis first, or transforming each
+// node once per relation and gather-summing, leaves 2*Cin*Cout or fewer
+// float32 operations per edge, under the ~16 bytes of index and mask each
+// edge slot costs. This kernel's basis-mix form spends 2*B*Cin*Cout = 8
+// KFLOP per edge at IGMC's widths (B = 4 bases, Cin 32, Cout 32), so its own
+// arithmetic on the float32 CUDA cores (67 TFLOP/s peak) is what bounds it:
+// about 12 times the function's floor at Cin 32. The gathers hit L2 (x is
+// a few MB at most).
 //
 // Design (simple first, not yet fast):
 //   * One CTA per `rows`-row output chunk. block_align_edges packs each

@@ -26,9 +26,14 @@ import torch
 # Host-side block alignment
 # ---------------------------------------------------------------------------
 
+# The plan's geometry: output chunks of PLAN_ROWS node rows (the CUDA
+# kernel's shared-memory accumulator) and blocks of PLAN_EBLK edge slots.
+PLAN_ROWS = 256
+PLAN_EBLK = 1024
 
-def plan_capacity_blocks(node_pad: int, edge_pad: int, rows: int = 256,
-                         eblk: int = 1024) -> int:
+
+def plan_capacity_blocks(node_pad: int, edge_pad: int, rows: int = PLAN_ROWS,
+                         eblk: int = PLAN_EBLK) -> int:
     """Worst-case block count of ANY edge list within (node_pad, edge_pad):
     every NONEMPTY chunk wastes at most one partial block, and at most
     min(n_chunks, edge_pad) chunks can be nonempty. Fixing plans to this
@@ -43,8 +48,8 @@ def block_align_edges(
     edge_type: np.ndarray,
     edge_mask: np.ndarray,
     num_nodes: int,
-    eblk: int = 1024,
-    rows: int = 256,
+    eblk: int = PLAN_EBLK,
+    rows: int = PLAN_ROWS,
     num_blocks: Optional[int] = None,
 ):
     """Sort/pad edges into dst-aligned blocks for the aggregate kernel.

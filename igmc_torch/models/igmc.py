@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..batching.batch import GraphBatch
-from ..kernels.rgcn_aggregate import _dst_global, rgcn_aggregate
+from ..kernels.rgcn_aggregate import PLAN_ROWS, _dst_global, rgcn_aggregate
 from .rgcn import RGCNConv, uniform_
 
 
@@ -34,7 +34,6 @@ class IGMCConfig:
     num_bases: int = 4
     multiply_by: float = 1.0
     aggr: str = "mean"                     # rgcn aggregation (mean/sum)
-    plan_rows: int = 256                   # output-chunk rows of the plan
 
 
 def _linear(in_features: int, out_features: int,
@@ -86,13 +85,13 @@ class IGMC(nn.Module):
         if cfg.aggr == "mean":
             amask = aligned[3]
             deg = torch.zeros(N, dtype=amask.dtype, device=amask.device)
-            deg.index_add_(0, _dst_global(aligned, cfg.plan_rows), amask)
+            deg.index_add_(0, _dst_global(aligned, PLAN_ROWS), amask)
             inv_deg = (1.0 / deg.clamp_min(1.0))[:, None]
 
         states = []
         for conv in self.convs:
             agg = rgcn_aggregate(x, conv.att, conv.basis, aligned,
-                                 cfg.plan_rows, N)
+                                 PLAN_ROWS, N)
             if cfg.aggr == "mean":
                 agg = agg * inv_deg
             x = torch.tanh(agg + x @ conv.root + conv.bias)

@@ -105,8 +105,7 @@ def test_once(
             f"{flat_aggregate!r}")
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev).eval()
-    loader = BatchLoader(test_dataset, batch_size,
-                         plan_rows=model.cfg.plan_rows)
+    loader = BatchLoader(test_dataset, batch_size)
     t_start = time.perf_counter()
     if ensemble and checkpoints:
         rmse = eval_rmse_ensemble(model, checkpoints, loader, dev)

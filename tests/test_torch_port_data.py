@@ -17,6 +17,7 @@ from igmc_tpu.graphs.csr import BipartiteCSR as JaxBipartiteCSR
 from igmc_tpu.graphs.extract import extract_many as jax_extract_many
 
 from igmc_torch.batching import BatchLoader, StaticGraphDataset
+from igmc_torch.batching import dataset as port_dataset
 from igmc_torch.data import create_trainvaltest_split, load_data
 from igmc_torch.data.loaders import _cf_nade_shuffle, map_data
 from igmc_torch.graphs import BipartiteCSR, extract_many
@@ -128,8 +129,12 @@ BATCH_FIELDS = ("node_label", "edge_src", "edge_dst", "edge_type", "edge_canon",
 
 
 @pytest.mark.parametrize("mnph,rows,eblk", [(100, 256, 1024), (3, 32, 128)])
-def test_batches_match_jax_pallas_loader(splits, mnph, rows, eblk):
+def test_batches_match_jax_pallas_loader(splits, monkeypatch, mnph, rows, eblk):
     want_split, got_split = splits
+    # the port's plan geometry is a pair of module constants; JAX's loader
+    # takes it as arguments
+    monkeypatch.setattr(port_dataset, "PLAN_ROWS", rows)
+    monkeypatch.setattr(port_dataset, "PLAN_EBLK", eblk)
     n = 120
     links = (want_split.test_u_indices, want_split.test_v_indices)
     want_ds = JaxStaticGraphDataset(
@@ -145,7 +150,7 @@ def test_batches_match_jax_pallas_loader(splits, mnph, rows, eblk):
     want_loader = JaxBatchLoader(want_ds, 50, device_put=False, prefetch=0,
                                  flat_aggregate="pallas", plan_rows=rows,
                                  plan_eblk=eblk)
-    got_loader = BatchLoader(got_ds, 50, plan_rows=rows, plan_eblk=eblk)
+    got_loader = BatchLoader(got_ds, 50)
     assert got_loader.node_ladder == want_loader.node_ladder
     assert got_loader.edge_ladder == want_loader.edge_ladder
     want_batches, got_batches = list(want_loader), list(got_loader)
