@@ -43,8 +43,12 @@ class GraphBatch:
     target_v: torch.Tensor     # int32 [B]   batch-local node idx of target item
     # dst-block-aligned edges for the fused aggregate kernel
     # (kernels/rgcn_aggregate.py block_align_edges): (src, dst_local, etype,
-    # mask, chunk_of_block, first_of_chunk), attached by BatchLoader.
+    # mask, chunk_of_block, first_of_chunk, ukey), attached by BatchLoader;
+    # ukey is the edge-dropout key stream
     aligned: Optional[Tuple[torch.Tensor, ...]] = None
+    # its src-sorted twin (block_align_edges_transposed), same layout, for
+    # the aggregate's gradient: attached by training loaders only
+    aligned_t: Optional[Tuple[torch.Tensor, ...]] = None
 
     @property
     def num_graphs(self) -> int:
@@ -59,11 +63,14 @@ class GraphBatch:
         return self.edge_src.shape[0]
 
     def to(self, device) -> "GraphBatch":
-        """A copy with every tensor (the aligned plan included) on `device`."""
-        moved = {f.name: getattr(self, f.name).to(device)
-                 for f in dataclasses.fields(self) if f.name != "aligned"}
-        if self.aligned is not None:
-            moved["aligned"] = tuple(a.to(device) for a in self.aligned)
+        """A copy with every tensor (the aligned plans included) on `device`."""
+        moved = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, tuple):
+                moved[f.name] = tuple(a.to(device) for a in v)
+            else:
+                moved[f.name] = None if v is None else v.to(device)
         return GraphBatch(**moved)
 
 

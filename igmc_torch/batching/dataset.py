@@ -6,11 +6,12 @@ Port of igmc_tpu/batching/dataset.py:
     packed structure-of-arrays (concatenated fields + offsets, compact and
     O(1) to slice). The JAX package's .npz cache is not ported yet.
   * BatchLoader — collates fixed-size padded flat batches on a geometric
-    bucket ladder, in order, and attaches the dst-block-aligned edge plan
-    of the fused aggregate kernel (the JAX package's
-    `flat_aggregate="pallas"` mode). No shuffling, threads, superbatches or
-    data parallelism yet, and no src-sorted twin plan: only the training
-    backward needs it.
+    bucket ladder, in order or shuffled per epoch, and attaches the
+    dst-block-aligned edge plan of the fused aggregate kernel with its
+    dropout key stream (the JAX package's `flat_aggregate="pallas"` mode);
+    a training loader (shuffle=True) also attaches the src-sorted twin plan
+    that the aggregate's gradient walks. No threads, superbatches or data
+    parallelism yet.
 
 `max_num` subsampling draws the reference's permutation of
 np.random.seed(123), from a private RandomState(123).
@@ -26,6 +27,7 @@ import torch
 from ..graphs.csr import BipartiteCSR
 from ..graphs.extract import Subgraph, extract_many
 from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_edges,
+                                      block_align_edges_transposed,
                                       plan_capacity_blocks)
 from .batch import GraphBatch, bucket_for, collate, pad_ladder, topk_sum_bound
 
@@ -120,18 +122,29 @@ class StaticGraphDataset:
 
 
 class BatchLoader:
-    """In-order flat batches with the aggregate kernel's aligned edge plan.
+    """Flat batches with the aggregate kernel's aligned edge plans.
 
     Yields CPU GraphBatches whose (node_pad, edge_pad) come from geometric
     ladders up to the dataset's worst-case batch; node_pad is rounded up to
-    a multiple of PLAN_ROWS (the kernel's output chunk), and the plan is
+    a multiple of PLAN_ROWS (the kernel's output chunk), and the plans are
     sized by plan_capacity_blocks so every batch of one bucket has the same
     plan shape.
+
+    With `shuffle`, each pass draws the order
+    default_rng(SeedSequence([seed, epoch])).permutation, and `epoch` counts
+    up by one per pass (set it to replay a given epoch's order), as the JAX
+    package's loader does; such a training loader also attaches the
+    src-sorted twin plan (`batch.aligned_t`). Without it the order is the
+    dataset's and only the dst-sorted plan is built.
     """
 
-    def __init__(self, dataset: StaticGraphDataset, batch_size: int):
+    def __init__(self, dataset: StaticGraphDataset, batch_size: int,
+                 shuffle: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
         # ladders up to the worst-case batch of the dataset: no batch
         # overflows them
         max_n, max_e = topk_sum_bound(dataset.node_counts(),
@@ -150,14 +163,28 @@ class BatchLoader:
         node_pad = -(-node_pad // PLAN_ROWS) * PLAN_ROWS
         batch = collate(graphs, self.batch_size, node_pad, edge_pad)
         nb = plan_capacity_blocks(node_pad, edge_pad, PLAN_ROWS, PLAN_EBLK)
-        plan = block_align_edges(
-            batch.edge_src.numpy(), batch.edge_dst.numpy(),
-            batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad,
-            eblk=PLAN_EBLK, rows=PLAN_ROWS, num_blocks=nb)
-        batch.aligned = tuple(torch.from_numpy(a) for a in plan[:6])
+        edges = (batch.edge_src.numpy(), batch.edge_dst.numpy(),
+                 batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad)
+        plan_kw = dict(eblk=PLAN_EBLK, rows=PLAN_ROWS, num_blocks=nb,
+                       edge_canon=batch.edge_canon.numpy())
+        # (src, dst_local, etype, mask, chunk_of_block, first_of_chunk, ukey)
+        plan = block_align_edges(*edges, **plan_kw)
+        batch.aligned = tuple(torch.from_numpy(a) for a in plan[:6] + plan[7:])
+        if self.shuffle:
+            plan_t = block_align_edges_transposed(*edges, **plan_kw)
+            batch.aligned_t = tuple(torch.from_numpy(a)
+                                    for a in plan_t[:6] + plan_t[7:])
         return batch
 
+    def _order(self) -> np.ndarray:
+        n = len(self.dataset)
+        if not self.shuffle:
+            return np.arange(n, dtype=np.int64)
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch]))
+        return rng.permutation(n).astype(np.int64)
+
     def __iter__(self) -> Iterator[GraphBatch]:
-        order = np.arange(len(self.dataset), dtype=np.int64)
+        order = self._order()
+        self.epoch += 1
         for s in range(0, len(order), self.batch_size):
             yield self.make_batch(order[s : s + self.batch_size])

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
-use into `kernels/build/lib<name>-<hash>.so`, where the hash covers the
-source and the compiler flags: an edited source rebuilds, an unchanged one
-loads the library already built. The ptxas report (registers, shared
-memory, spills) is kept beside each library as `.log`.
+Each `csrc/<name>.cu` (KERNELS) exposes a plain C interface and is
+compiled on first use into `kernels/build/lib<name>-<hash>.so`, where the
+hash covers the source and the compiler flags: an edited source rebuilds,
+an unchanged one loads the library already built. `build_many` starts one
+nvcc per source, all at once. The ptxas report (registers, shared memory,
+spills) is kept beside each library as `.log`.
 
 nvcc is found through CUDA_HOME (or CUDA_PATH), then PATH, then PyTorch's
 own idea of the CUDA home. Nothing here runs at import time.
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -27,6 +28,8 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+KERNELS = ("rgcn_aggregate_fwd", "rgcn_aggregate_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -53,26 +56,42 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+def build_many(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile each csrc/<name>.cu that is not built already, one nvcc
+    process per source, all started together; returns {name: library
+    path}. Raises RuntimeError with nvcc's output if any build fails."""
+    paths = {name: library_path(name) for name in names}
+    todo = {name: path for name, path in paths.items() if not os.path.isfile(path)}
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc {name}.cu (exit {proc.returncode}):\n{out}")
+            continue
+        with open(todo[name] + ".log", "w") as f:
+            f.write(out)
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return paths
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless it is built already; returns the
-    library's path. Raises RuntimeError with nvcc's output if it fails."""
-    path = library_path(name)
-    if os.path.isfile(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"CUDA kernel build failed: nvcc {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    with open(path + ".log", "w") as f:
-        f.write(proc.stdout)
-    os.replace(tmp, path)
-    return path
+    library's path."""
+    return build_many([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,17 +1,19 @@
-"""Fused R-GCN aggregate over dst-block-aligned edges: host plan, CUDA
-kernel wrapper and its plain PyTorch version.
+"""Fused R-GCN aggregate over block-aligned edges: host plans, the CUDA
+kernel wrappers (forward K1, backward K2) and their plain PyTorch versions.
 
-Port of igmc_tpu/kernels/rgcn_aggregate.py (forward only). The host packs
-a batch's edges, sorted by destination, into fixed blocks of `eblk` edges
-such that every block only targets one aligned chunk of `rows` output rows
+Port of igmc_tpu/kernels/rgcn_aggregate.py. The host packs a batch's
+edges, sorted by destination, into fixed blocks of `eblk` edges such that
+every block only targets one aligned chunk of `rows` output rows
 (block_align_edges). `rgcn_aggregate` then computes, per node row,
 
     out[i] = sum_{e: dst_e = i} mask_e * sum_b att[etype_e, b] * (x[src_e] @ basis[b])
 
 — the masked segment-SUM of basis-mixed R-GCN messages — with the CUDA
 kernel in csrc/rgcn_aggregate_fwd.cu for CUDA tensors, and with
-`rgcn_aggregate_ref` for CPU tensors. It has no backward yet: the TPU
-package's backward kernel belongs to the training slice.
+`rgcn_aggregate_ref` for CPU tensors. Its gradient runs over the
+src-sorted twin plan (block_align_edges_transposed): the CUDA kernel in
+csrc/rgcn_aggregate_bwd.cu for CUDA tensors (`rgcn_aggregate_bwd`), and
+`rgcn_aggregate_bwd_ref` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -51,16 +53,25 @@ def block_align_edges(
     eblk: int = PLAN_EBLK,
     rows: int = PLAN_ROWS,
     num_blocks: Optional[int] = None,
+    edge_canon: Optional[np.ndarray] = None,
+    ukey_vals: Optional[np.ndarray] = None,
 ):
     """Sort/pad edges into dst-aligned blocks for the aggregate kernel.
 
     Returns (src, dst_local, etype, mask, chunk_of_block, first_of_chunk,
-    n_blocks): edge arrays of shape [n_blocks*eblk]; block b only contains
-    edges whose dst lies in chunk `chunk_of_block[b]` (rows
+    n_blocks, ukey): edge arrays of shape [n_blocks*eblk]; block b only
+    contains edges whose dst lies in chunk `chunk_of_block[b]` (rows
     [c*rows, (c+1)*rows)); blocks of one chunk are consecutive, every chunk
     owns at least one block, and `first_of_chunk[b]` marks the first.
     Extra blocks requested by `num_blocks` hold only padding and go to
     chunk 0.
+
+    `ukey` is the edge-dropout key stream (None unless `edge_canon` or
+    `ukey_vals` is given): `edge_canon * 2 + (src < dst)` per real slot,
+    from the undirected-pair ids of GraphBatch.edge_canon, so the keep
+    decision can be recomputed on the device as a stateless hash of
+    (seed, ukey). `ukey_vals` carries precomputed per-edge keys instead
+    (block_align_edges_transposed passes the original orientation's).
     """
     if num_nodes % rows:
         raise ValueError(f"num_nodes {num_nodes} is not a multiple of rows {rows}")
@@ -89,6 +100,9 @@ def block_align_edges(
     dstl = np.zeros(E, np.int32)
     etyp = np.zeros(E, np.int32)
     mask = np.zeros(E, np.float32)
+    if ukey_vals is None and edge_canon is not None:
+        ukey_vals = edge_canon * 2 + (edge_src < edge_dst)
+    ukey = None if ukey_vals is None else np.zeros(E, np.int32)
     chunk_of_block = np.zeros(n_blocks, np.int32)
     first_of_chunk = np.zeros(n_blocks, np.int32)
 
@@ -104,10 +118,39 @@ def block_align_edges(
             dstl[o : o + n] = edge_dst[sub] - c * rows
             etyp[o : o + n] = edge_type[sub]
             mask[o : o + n] = 1.0
+            if ukey is not None:
+                ukey[o : o + n] = ukey_vals[sub]
             chunk_of_block[b] = c
             first_of_chunk[b] = 1 if k == 0 else 0
             b += 1
-    return src, dstl, etyp, mask, chunk_of_block, first_of_chunk, n_blocks
+    return (src, dstl, etyp, mask, chunk_of_block, first_of_chunk, n_blocks,
+            ukey)
+
+
+def block_align_edges_transposed(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_type: np.ndarray,
+    edge_mask: np.ndarray,
+    num_nodes: int,
+    eblk: int = PLAN_EBLK,
+    rows: int = PLAN_ROWS,
+    num_blocks: Optional[int] = None,
+    edge_canon: Optional[np.ndarray] = None,
+):
+    """The src-sorted twin plan: block_align_edges with src and dst swapped.
+
+    The aggregate's gradient scatters to the SOURCE rows, so its kernel
+    walks blocks aligned on src chunks. In the returned tuple element 0 is
+    the ORIGINAL dst (the rows of the output gradient to gather) and
+    element 1 the ORIGINAL src local to its chunk (the dx row); ukey still
+    keys the original orientation, so both plans drop the same edges."""
+    uv = None
+    if edge_canon is not None:
+        uv = (edge_canon * 2 + (edge_src < edge_dst)).astype(np.int32)
+    return block_align_edges(
+        edge_dst, edge_src, edge_type, edge_mask, num_nodes,
+        eblk=eblk, rows=rows, num_blocks=num_blocks, ukey_vals=uv)
 
 
 def _dst_global(aligned: Sequence[torch.Tensor], rows: int) -> torch.Tensor:
@@ -118,13 +161,13 @@ def _dst_global(aligned: Sequence[torch.Tensor], rows: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 
 def rgcn_aggregate_ref(x, att, basis, aligned, rows: int, num_nodes: int):
     """The aggregate in plain PyTorch: gather, basis-mix, one matmul, mask,
-    index_add_ on the global dst. Returns [num_nodes, Cout] float32."""
+    index_add_ on the global dst. Returns [num_nodes, Cout] in x's dtype."""
     src, _, etype, mask = aligned[:4]
     nb, cin, cout = basis.shape
     xs = x[src.long()]                                   # [Ep, Cin]
@@ -135,49 +178,112 @@ def rgcn_aggregate_ref(x, att, basis, aligned, rows: int, num_nodes: int):
     return out.index_add_(0, _dst_global(aligned, rows), msg)
 
 
+def rgcn_aggregate_bwd_ref(g, x, att, basis, aligned_t, rows: int):
+    """The aggregate's gradient in plain PyTorch, over the src-sorted twin
+    plan `aligned_t` (block_align_edges_transposed, dropout folded into its
+    mask as into the forward plan's). For the output gradient g [N, Cout]:
+
+        gv   = g[dst] * mask                  t_b = gv @ basis_b^T
+        dx   = index_add over src of  sum_b ae_b * t_b
+        datt = index_add over etype of <t_b, x[src]>
+        dbasis_b = (ae_b * x[src])^T @ gv
+
+    with ae = att[etype]. Returns (dx, datt, dbasis) in the inputs' dtype."""
+    gdst, _, etype, mask = aligned_t[:4]
+    nb, cin, cout = basis.shape
+    src = _dst_global(aligned_t, rows)                   # the twin's dst is src
+    gv = g[gdst.long()] * mask[:, None]                  # [Ep, Cout]
+    xs = x[src]                                          # [Ep, Cin]
+    ae = att[etype.long()]                               # [Ep, B]
+    t = (gv @ basis.permute(2, 0, 1).reshape(cout, nb * cin)).reshape(-1, nb, cin)
+    dx = torch.zeros_like(x).index_add_(0, src, (ae[:, :, None] * t).sum(1))
+    datt = torch.zeros_like(att).index_add_(0, etype.long(),
+                                            (t * xs[:, None, :]).sum(2))
+    z = (ae[:, :, None] * xs[:, None, :]).reshape(-1, nb * cin)
+    dbasis = (z.T @ gv).reshape(nb, cin, cout)
+    return dx, datt, dbasis
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-_MAX_COUT = 32   # one lane per output channel
-_MAX_BASES = 8   # the kernel is instantiated for 1..8 bases
-_lib = None
+_MAX_COUT = 32     # K1: one lane per output channel
+_MAX_CIN_BWD = 32  # K2: one lane per input channel
+_MAX_BASES = 8     # both kernels are instantiated for 1..8 bases
+_N_ARGS = {"rgcn_aggregate_fwd": (9, 8), "rgcn_aggregate_bwd": (12, 9)}
+_libs = {}
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
+def _kernel_lib(name: str):
+    """The ctypes handle of kernel library `name` (built on first use),
+    with its C interface declared: pointers, then ints, then the stream."""
+    lib = _libs.get(name)
+    if lib is None:
         from .build import load
 
-        lib = load("rgcn_aggregate_fwd")
+        lib = load(name)
+        n_ptr, n_int = _N_ARGS[name]
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rgcn_aggregate_fwd.argtypes = [p] * 9 + [i] * 8 + [p]
-        lib.rgcn_aggregate_fwd.restype = i
-        lib.rgcn_aggregate_fwd_max_smem.argtypes = []
-        lib.rgcn_aggregate_fwd_max_smem.restype = i
-        lib.rgcn_aggregate_fwd_error_string.argtypes = [i]
-        lib.rgcn_aggregate_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+        fn.restype = i
+        getattr(lib, f"{name}_max_smem").argtypes = []
+        getattr(lib, f"{name}_max_smem").restype = i
+        getattr(lib, f"{name}_error_string").argtypes = [i]
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
 
 
-def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes):
-    src, dstl, etype, mask, chunk_of_block = aligned[:5]
-    named = {"x": x, "att": att, "basis": basis, "src": src, "dst_local": dstl,
-             "etype": etype, "mask": mask, "chunk_of_block": chunk_of_block}
-    for name, t in named.items():
+def _grad_wanted(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _require_twin_plan(aligned_t):
+    if aligned_t is None:
+        raise RuntimeError(
+            "rgcn_aggregate: a gradient needs the src-sorted twin plan "
+            "`aligned_t`, which the training loader attaches "
+            "(BatchLoader(..., shuffle=True)); call it under torch.no_grad() "
+            "to evaluate")
+
+
+def _check_plan(what, plan, device, ep=None):
+    """Device, contiguity and dtypes of a plan's first five arrays; all
+    edge arrays of length `ep` (the first array's, by default)."""
+    names = ("src", "dst_local", "etype", "mask", "chunk_of_block")
+    for name, t in zip(names, plan[:5]):
+        if t.device != device:
+            raise ValueError(f"rgcn_aggregate: {what} {name} on {t.device}, "
+                             f"x on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"rgcn_aggregate: {what} {name} must be contiguous")
+        want = torch.float32 if name == "mask" else torch.int32
+        if t.dtype != want:
+            raise TypeError(f"rgcn_aggregate: {what} {name} must be {want}, "
+                            f"got {t.dtype}")
+    nblk = plan[4].shape[0]
+    ep = plan[0].shape[0] if ep is None else ep
+    if nblk == 0 or ep % nblk:
+        raise ValueError(f"rgcn_aggregate: {ep} {what} edges do not split "
+                         f"into {nblk} blocks")
+    for name, t in zip(names[:4], plan[:4]):
+        if t.shape != (ep,):
+            raise ValueError(f"rgcn_aggregate: {what} {name} shape "
+                             f"{tuple(t.shape)} != ({ep},)")
+
+
+def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes, aligned_t=None):
+    """What K1 (and, when a gradient is wanted, K2) does not take raises
+    here, before any launch."""
+    for name, t in (("x", x), ("att", att), ("basis", basis)):
         if t.device != x.device:
             raise ValueError(f"rgcn_aggregate: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"rgcn_aggregate: {name} must be contiguous")
-    for name in ("x", "att", "basis", "mask"):
-        if named[name].dtype != torch.float32:
-            raise TypeError(f"rgcn_aggregate: {name} must be float32, "
-                            f"got {named[name].dtype}")
-    for name in ("src", "dst_local", "etype", "chunk_of_block"):
-        if named[name].dtype != torch.int32:
-            raise TypeError(f"rgcn_aggregate: {name} must be int32, "
-                            f"got {named[name].dtype}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"rgcn_aggregate: {name} must be float32, got {t.dtype}")
     nb, cin, cout = basis.shape
     if x.dim() != 2 or x.shape != (num_nodes, cin):
         raise ValueError(f"rgcn_aggregate: x {tuple(x.shape)} != ({num_nodes}, {cin})")
@@ -189,22 +295,75 @@ def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes):
     if not 1 <= nb <= _MAX_BASES:
         raise ValueError(f"rgcn_aggregate: the kernel takes 1 to {_MAX_BASES} "
                          f"bases, got {nb}")
-    nblk = chunk_of_block.shape[0]
-    ep = src.shape[0]
-    if nblk == 0 or ep % nblk:
-        raise ValueError(f"rgcn_aggregate: {ep} edges do not split into {nblk} blocks")
-    for name in ("dst_local", "etype", "mask"):
-        if named[name].shape != (ep,):
-            raise ValueError(f"rgcn_aggregate: {name} shape {tuple(named[name].shape)} "
-                             f"!= ({ep},)")
     if num_nodes % rows:
         raise ValueError(f"rgcn_aggregate: num_nodes {num_nodes} % rows {rows} != 0")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, att, basis)):
-        raise RuntimeError("rgcn_aggregate: the CUDA kernel has no backward yet; "
-                           "call it under torch.no_grad()")
+    _check_plan("aligned", aligned, x.device)
+    if _grad_wanted(x, att, basis):
+        _require_twin_plan(aligned_t)
+        if cin > _MAX_CIN_BWD:
+            raise ValueError(f"rgcn_aggregate: the backward kernel takes Cin "
+                             f"<= {_MAX_CIN_BWD}, got {cin}")
+        _check_plan("aligned_t", aligned_t, x.device, aligned[0].shape[0])
 
 
-def rgcn_aggregate(x, att, basis, aligned, rows: int, num_nodes: int):
+def _launch(name, smem, ptrs, ints, device):
+    """Launch kernel `name` on the current stream of `device`; raises if
+    the shared memory it needs is over the card's per-block limit or the
+    launch fails."""
+    lib = _kernel_lib(name)
+    with torch.cuda.device(device):
+        if smem > getattr(lib, f"{name}_max_smem")():
+            raise ValueError(f"{name}: needs {smem} B of shared memory, over "
+                             f"the card's per-block limit")
+        err = getattr(lib, name)(*ptrs, *ints,
+                                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
+
+
+def _aggregate_fwd(x, att, basis, aligned, rows: int, num_nodes: int):
+    """The forward on x's device: the plain version on the CPU, K1 on CUDA
+    (inputs already checked)."""
+    if x.device.type == "cpu":
+        return rgcn_aggregate_ref(x, att, basis, aligned, rows, num_nodes)
+    src, dstl, etype, mask, chunk_of_block = aligned[:5]
+    nb, cin, cout = basis.shape
+    nblk = chunk_of_block.shape[0]
+    out = torch.empty(num_nodes, cout, dtype=torch.float32, device=x.device)
+    _launch("rgcn_aggregate_fwd",
+            4 * (nb * cin * cout + att.shape[0] * nb + rows * cout),
+            (x.data_ptr(), att.data_ptr(), basis.data_ptr(), src.data_ptr(),
+             dstl.data_ptr(), etype.data_ptr(), mask.data_ptr(),
+             chunk_of_block.data_ptr(), out.data_ptr()),
+            (num_nodes, cin, cout, nb, att.shape[0], rows, nblk,
+             src.shape[0] // nblk), x.device)
+    rgcn_aggregate.launches += 1
+    return out
+
+
+class _Aggregate(torch.autograd.Function):
+    """rgcn_aggregate with its gradient over the src-sorted twin plan:
+    forward K1 / rgcn_aggregate_ref, backward K2 / rgcn_aggregate_bwd_ref,
+    by the tensors' device."""
+
+    @staticmethod
+    def forward(ctx, x, att, basis, aligned, aligned_t, rows, num_nodes):
+        ctx.save_for_backward(x, att, basis)
+        ctx.aligned_t, ctx.rows = aligned_t, rows
+        return _aggregate_fwd(x, att, basis, aligned, rows, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, att, basis = ctx.saved_tensors
+        dx, datt, dbasis = rgcn_aggregate_bwd(
+            g.contiguous(), x, att, basis, ctx.aligned_t, ctx.rows,
+            need_dx=ctx.needs_input_grad[0])
+        return dx, datt, dbasis, None, None, None, None
+
+
+def rgcn_aggregate(x, att, basis, aligned, rows: int, num_nodes: int,
+                   aligned_t=None):
     """Masked segment-SUM of basis-mixed messages over aligned blocks.
 
     x [N, Cin] node features; att [R, B]; basis [B, Cin, Cout];
@@ -213,40 +372,76 @@ def rgcn_aggregate(x, att, basis, aligned, rows: int, num_nodes: int):
     [num_nodes, Cout] float32 sums (divide by the degree outside for the
     mean).
 
-    CUDA tensors go through the hand-written kernel (built on first use;
-    `rgcn_aggregate.launches` counts its launches) and anything it does not
-    take raises. The kernel trusts the plan's index values (checking them
-    would cost a device sync per launch): block_align_edges checks them
-    against num_nodes when it builds the plan. CPU tensors take
-    `rgcn_aggregate_ref`.
+    Differentiable in x, att and basis when `aligned_t`, the src-sorted
+    twin plan with the same dropout folded into its mask, is given; a
+    gradient wanted without it raises.
+
+    CUDA tensors go through the hand-written kernels, K1 forward and K2
+    backward (built on first use; `rgcn_aggregate.launches` and
+    `rgcn_aggregate_bwd.launches` count their launches), and anything they
+    do not take raises. The kernels trust the plans' index values
+    (checking them would cost a device sync per launch): block_align_edges
+    checks them against num_nodes when it builds a plan. CPU tensors take
+    the plain versions.
     """
-    if x.device.type == "cpu":
-        return rgcn_aggregate_ref(x, att, basis, aligned, rows, num_nodes)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rgcn_aggregate: no kernel for device {x.device}")
-    _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes)
-    src, dstl, etype, mask, chunk_of_block = aligned[:5]
-    nb, cin, cout = basis.shape
-    nblk = chunk_of_block.shape[0]
-    lib = _kernel_lib()
-    smem = 4 * (nb * cin * cout + att.shape[0] * nb + rows * cout)
-    with torch.cuda.device(x.device):
-        if smem > lib.rgcn_aggregate_fwd_max_smem():
-            raise ValueError(f"rgcn_aggregate: needs {smem} B of shared memory "
-                             f"(rows {rows}, basis {tuple(basis.shape)}), over "
-                             f"the card's per-block limit")
-        out = torch.empty(num_nodes, cout, dtype=torch.float32, device=x.device)
-        err = lib.rgcn_aggregate_fwd(
-            x.data_ptr(), att.data_ptr(), basis.data_ptr(), src.data_ptr(),
-            dstl.data_ptr(), etype.data_ptr(), mask.data_ptr(),
-            chunk_of_block.data_ptr(), out.data_ptr(),
-            num_nodes, cin, cout, nb, att.shape[0], rows, nblk,
-            src.shape[0] // nblk, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.rgcn_aggregate_fwd_error_string(err).decode()
-        raise RuntimeError(f"rgcn_aggregate: kernel launch failed: {msg} ({err})")
-    rgcn_aggregate.launches += 1
-    return out
+    grad = _grad_wanted(x, att, basis)
+    if x.device.type == "cuda":
+        _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes, aligned_t)
+    elif grad:
+        _require_twin_plan(aligned_t)
+    if not grad:
+        return _aggregate_fwd(x, att, basis, aligned, rows, num_nodes)
+    return _Aggregate.apply(x, att, basis, aligned, aligned_t, rows, num_nodes)
 
 
 rgcn_aggregate.launches = 0
+
+
+def rgcn_aggregate_bwd(g, x, att, basis, aligned_t, rows: int,
+                       need_dx: bool = True):
+    """The aggregate's gradient for the output gradient g [N, Cout]:
+    (dx or None, datt, dbasis), as rgcn_aggregate_bwd_ref computes it.
+
+    CPU tensors take rgcn_aggregate_bwd_ref. CUDA tensors go through K2
+    (csrc/rgcn_aggregate_bwd.cu; `rgcn_aggregate_bwd.launches` counts its
+    launches), which skips dx when `need_dx` is false (layer 1's one-hot
+    input); anything it does not take raises."""
+    if g.device.type == "cpu":
+        dx, datt, dbasis = rgcn_aggregate_bwd_ref(g, x, att, basis, aligned_t, rows)
+        return (dx if need_dx else None), datt, dbasis
+    if g.device.type != "cuda":
+        raise ValueError(f"rgcn_aggregate_bwd: no kernel for device {g.device}")
+    nb, cin, cout = basis.shape
+    num_nodes = x.shape[0]
+    if (g.device != x.device or g.dtype != torch.float32
+            or g.shape != (num_nodes, cout) or not g.is_contiguous()):
+        raise ValueError(f"rgcn_aggregate_bwd: g must be a contiguous float32 "
+                         f"[{num_nodes}, {cout}] on {x.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    with torch.no_grad():
+        _check_cuda_inputs(x, att, basis, aligned_t, rows, num_nodes)
+    if cin > _MAX_CIN_BWD:
+        raise ValueError(f"rgcn_aggregate_bwd: the kernel takes Cin <= "
+                         f"{_MAX_CIN_BWD}, got {cin}")
+    gdst, srcl, etype, mask, chunk_of_block = aligned_t[:5]
+    nrel, nblk = att.shape[0], chunk_of_block.shape[0]
+    dx = torch.empty_like(x) if need_dx else None
+    datt = torch.zeros_like(att)
+    dbasis = torch.zeros_like(basis)
+    # basis^T, att, the [rows, Cin] dx accumulator, the dbasis partial and
+    # per-lane datt partials, as csrc/rgcn_aggregate_bwd.cu lays them out
+    smem = 4 * (2 * nb * cin * cout + nrel * nb + rows * cin + 32 * nrel * nb)
+    _launch("rgcn_aggregate_bwd", smem,
+            (g.data_ptr(), x.data_ptr(), att.data_ptr(), basis.data_ptr(),
+             gdst.data_ptr(), srcl.data_ptr(), etype.data_ptr(), mask.data_ptr(),
+             chunk_of_block.data_ptr(), dx.data_ptr() if need_dx else 0,
+             datt.data_ptr(), dbasis.data_ptr()),
+            (num_nodes, cin, cout, nb, nrel, rows, nblk, gdst.shape[0] // nblk,
+             int(need_dx)), g.device)
+    rgcn_aggregate_bwd.launches += 1
+    return dx, datt, dbasis
+
+
+rgcn_aggregate_bwd.launches = 0

@@ -1,14 +1,17 @@
-"""The IGMC model over flat padded graph batches (evaluation forward).
+"""The IGMC model over flat padded graph batches.
 
-Port of igmc_tpu/models/igmc.py (IGMCConfig, igmc_init, and the flat
-branch of igmc_forward with use_pallas): one-hot hop labels, 4 R-GCN
-layers with tanh whose aggregate runs through the fused kernel
+Port of igmc_tpu/models/igmc.py (IGMCConfig, igmc_init, the flat branch of
+igmc_forward with use_pallas, arr_regularizer): one-hot hop labels, 4 R-GCN
+layers with tanh whose aggregate runs through the fused kernels
 (kernels/rgcn_aggregate.py), the concatenated states of the target user
-and target item, then relu(lin1) and lin2, times `multiply_by`.
+and target item, then relu(lin1), feature dropout 0.5 in training, and
+lin2, times `multiply_by`.
 
-Only the evaluation forward is ported: training mode (edge and feature
-dropout), side features and the other aggregation engines and layouts
-belong to later slices and raise here.
+In training mode the forward takes its noise from the caller,
+(edge_seed, feature_keep) from `draw_noise`: the edge dropout keeps an edge
+when hash_edge_keep(edge_seed, ukey) clears `adj_dropout`, folded into both
+plans' masks, and feature_keep is lin1's dropout mask. Side features and
+the other aggregation engines and layouts belong to later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ from torch import nn
 
 from ..batching.batch import GraphBatch
 from ..kernels.rgcn_aggregate import PLAN_ROWS, _dst_global, rgcn_aggregate
+from ..ops.dropout import feature_dropout, hash_edge_keep
 from .rgcn import RGCNConv, uniform_
+
+HIDDEN = 128           # lin1's width
+FEATURE_DROPOUT = 0.5  # dropout after relu(lin1) in training
 
 
 @dataclass(frozen=True)
@@ -32,6 +39,8 @@ class IGMCConfig:
     latent_dim: Tuple[int, ...] = (32, 32, 32, 32)
     num_relations: int = 5
     num_bases: int = 4
+    adj_dropout: float = 0.2
+    force_undirected: bool = False
     multiply_by: float = 1.0
     aggr: str = "mean"                     # rgcn aggregation (mean/sum)
 
@@ -62,28 +71,35 @@ class IGMC(nn.Module):
                                   cfg.num_bases, generator))
             in_dim = out_dim
         self.convs = nn.ModuleList(convs)
-        self.lin1 = _linear(2 * sum(cfg.latent_dim), 128, generator)
-        self.lin2 = _linear(128, 1, generator)
+        self.lin1 = _linear(2 * sum(cfg.latent_dim), HIDDEN, generator)
+        self.lin2 = _linear(HIDDEN, 1, generator)
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
-        """Predicted rating per graph, [B] float32 (evaluation mode only)."""
+    def forward(self, batch: GraphBatch, noise=None) -> torch.Tensor:
+        """Predicted rating per graph, [B] float32. In training mode
+        `noise` = (edge_seed, feature_keep) is required (draw_noise)."""
         cfg = self.cfg
-        if self.training:
-            raise NotImplementedError(
-                "igmc_torch IGMC runs the evaluation forward only; call "
-                ".eval() (training mode is not ported yet)")
         if cfg.aggr not in ("mean", "sum"):
             raise NotImplementedError(f"aggregate kernel + aggr={cfg.aggr}")
-        aligned = batch.aligned
+        aligned, aligned_t = batch.aligned, batch.aligned_t
         if aligned is None:
             raise ValueError("the IGMC forward needs the batch's aligned edge "
                              "plan (BatchLoader attaches it)")
+        if self.training:
+            if noise is None:
+                raise ValueError("IGMC in training mode needs noise = "
+                                 "(edge_seed, feature_keep) from draw_noise; "
+                                 "call .eval() to evaluate")
+            edge_seed, feature_keep = noise
+            if cfg.adj_dropout > 0:
+                aligned = _drop_edges(aligned, edge_seed, cfg)
+                if aligned_t is not None:
+                    aligned_t = _drop_edges(aligned_t, edge_seed, cfg)
         N = batch.node_label.shape[0]
         x = F.one_hot(batch.node_label.long(), cfg.num_features).float()
         x = x * batch.node_mask[:, None].float()
 
         if cfg.aggr == "mean":
-            amask = aligned[3]
+            amask = aligned[3]       # the degree counts the kept edges only
             deg = torch.zeros(N, dtype=amask.dtype, device=amask.device)
             deg.index_add_(0, _dst_global(aligned, PLAN_ROWS), amask)
             inv_deg = (1.0 / deg.clamp_min(1.0))[:, None]
@@ -91,7 +107,7 @@ class IGMC(nn.Module):
         states = []
         for conv in self.convs:
             agg = rgcn_aggregate(x, conv.att, conv.basis, aligned,
-                                 PLAN_ROWS, N)
+                                 PLAN_ROWS, N, aligned_t)
             if cfg.aggr == "mean":
                 agg = agg * inv_deg
             x = torch.tanh(agg + x @ conv.root + conv.bias)
@@ -101,4 +117,39 @@ class IGMC(nn.Module):
         h = torch.cat([concat_states[batch.target_u.long()],
                        concat_states[batch.target_v.long()]], dim=1)
         h = F.relu(self.lin1(h))
+        if self.training:
+            h = feature_dropout(h, feature_keep, FEATURE_DROPOUT)
         return self.lin2(h)[:, 0] * cfg.multiply_by
+
+
+def _drop_edges(plan, edge_seed: int, cfg: IGMCConfig):
+    """`plan` with the hash edge dropout folded into its mask. The ukey
+    stream keys the original orientation in both plans, so the dst- and
+    src-sorted plans drop the same edges."""
+    if len(plan) < 7 or plan[6] is None:
+        raise ValueError("edge dropout needs the plan's ukey stream "
+                         "(BatchLoader attaches it)")
+    ukey = plan[6]
+    keep = hash_edge_keep(edge_seed, ukey // 2 if cfg.force_undirected else ukey,
+                          cfg.adj_dropout)
+    return plan[:3] + (plan[3] * keep.to(plan[3].dtype),) + plan[4:]
+
+
+def draw_noise(generator: torch.Generator, batch_size: int):
+    """One training step's noise from a CPU generator: (edge_seed, an int
+    in [0, 2**31 - 1), and feature_keep, a [batch_size, HIDDEN] bool mask
+    of Bernoulli(1 - FEATURE_DROPOUT)). Drawn on the CPU so the card and
+    the CPU see the same noise; move feature_keep to the batch's device."""
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    keep = torch.rand(batch_size, HIDDEN, generator=generator) >= FEATURE_DROPOUT
+    return seed, keep
+
+
+def arr_regularizer(model: IGMC) -> torch.Tensor:
+    """Adjacent-rating regularizer: the sum over layers of
+    ||W[1:] - W[:-1]||^2 with W = att @ basis, [R, Cin, Cout]."""
+    reg = 0.0
+    for conv in model.convs:
+        w = conv.relation_weights()
+        reg = reg + ((w[1:] - w[:-1]) ** 2).sum()
+    return reg

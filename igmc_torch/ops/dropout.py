@@ -1,0 +1,41 @@
+"""Dropout ops: the stateless hash edge dropout and feature dropout.
+
+Port of igmc_tpu/parallel/ep.py:hash_edge_keep and
+igmc_tpu/ops/dropout.py:feature_dropout. Edge dropout on the fused
+aggregate path keeps an edge when a murmur-style hash of (seed, edge key)
+clears the drop probability, so the keep decision is recomputed on the
+device per step from the plans' ukey streams, and both directed copies of
+an undirected pair can share one key (force_undirected). The hash equals
+the JAX package's bit for bit.
+
+torch has no usable uint32 arithmetic: the hash runs in int64, masked to
+its low 32 bits after every multiply and add and before every right
+shift. A product of two 32-bit values can overflow int64, but its low 32
+bits are still right once masked.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_LOW32 = 0xFFFFFFFF
+
+
+def hash_edge_keep(seed: int, key_ids: torch.Tensor, p: float) -> torch.Tensor:
+    """Bernoulli(1-p) keep decision per key, as a hash of (seed, key):
+    bool tensor of key_ids' shape and device. `seed` is an int in
+    [0, 2**32); key_ids are non-negative integers."""
+    h = (key_ids.long() * 0x9E3779B9) & _LOW32
+    h = (h + (int(seed) & _LOW32)) & _LOW32
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _LOW32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _LOW32
+    h = h ^ (h >> 16)
+    return h.float() * (1.0 / 4294967296.0) >= p
+
+
+def feature_dropout(h: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Inverted dropout with a given keep mask: h / (1 - p) where kept,
+    0 elsewhere (F.dropout's scaling)."""
+    return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))

@@ -1,15 +1,19 @@
-"""Checkpoint naming and loading.
+"""Checkpoint naming, loading, and the optimizer state's files.
 
 Port of igmc_tpu/train/checkpoints.py (checkpoint_path,
-resolve_checkpoint). The port writes and reads the PyTorch reference's
-``<kind>_checkpoint<E>.pth`` state_dicts. The JAX package's own
-``.ckpt`` files are flax msgpack, which this package cannot read yet:
-loading one raises.
+resolve_checkpoint, save/load). The port writes and reads the PyTorch
+reference's ``model_checkpoint<E>.pth`` state_dicts, and keeps the
+optimizer's state beside them as ``optimizer_checkpoint<E>.pth``
+(torch.optim's state_dict; the JAX package's optax state does not carry
+over). The JAX package's own ``.ckpt`` files are flax msgpack, which this
+package cannot read yet: loading one raises.
 """
 
 from __future__ import annotations
 
 import os
+
+import torch
 
 from .interop import load_pth
 
@@ -41,3 +45,18 @@ def load_checkpoint(path: str):
             f"'.pth' from the JAX package (train/torch_interop.py "
             f"save_reference_checkpoint)")
     return load_pth(path)
+
+
+def save_optimizer_state(path: str, optimizer: torch.optim.Optimizer) -> None:
+    """Write optimizer.state_dict() as a `.pth`, atomically, as save_pth
+    writes a model."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(optimizer.state_dict(), tmp)
+    os.replace(tmp, path)
+
+
+def load_optimizer_state(path: str) -> dict:
+    """The optimizer state_dict stored at `path`, on the CPU
+    (optimizer.load_state_dict moves it to the parameters' device)."""
+    return torch.load(path, map_location="cpu", weights_only=True)

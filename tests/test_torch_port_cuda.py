@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from igmc_torch.kernels.rgcn_aggregate import (
-    block_align_edges, rgcn_aggregate, rgcn_aggregate_ref,
+    block_align_edges, block_align_edges_transposed, rgcn_aggregate,
+    rgcn_aggregate_bwd, rgcn_aggregate_bwd_ref, rgcn_aggregate_ref,
 )
 
 CASES = [
@@ -66,3 +67,84 @@ def test_cuda_kernel_matches_plain(case, extra, cin):
     torch.cuda.synchronize()
     assert rgcn_aggregate.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+BWD_CASES = [
+    # (edge case, extra padding blocks beyond the need)
+    ("random", 0),
+    ("hot_src", 0),
+    ("random", 64),
+]
+
+
+def assert_close_to_terms(got, want, abs_terms, name):
+    """|got - want| <= 1e-5 * (sum of |terms| of that entry) + 1e-7: the
+    float32 rounding of a sum taken in any order is bounded by a small
+    multiple of eps (6e-8) times the sum of its terms' magnitudes; 1e-5
+    leaves ~170 eps for atomics over up to ~2e5 terms."""
+    err = (got.double() - want).abs()
+    bound = 1e-5 * abs_terms + 1e-7
+    worst = float((err - bound).max())
+    assert worst <= 0, f"{name}: max error {float(err.max()):.3e} over its bound"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,extra", BWD_CASES)
+@pytest.mark.parametrize("cin", [4, 32])
+def test_cuda_bwd_kernel_matches_plain(case, extra, cin):
+    """K2's dx, datt and dbasis vs the plain backward in float64 on the
+    src-sorted twin plan (random edges, a hot SOURCE row over several
+    blocks, 64 extra padding blocks in chunk 0), with dx skipped too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, E, R, B, Cout, rows, eblk = 512, 6000, 5, 4, 32, 256, 1024
+    (src, dst, etyp, mask), (x, att, basis) = make_case(
+        "random", N, E, R, B, cin, Cout, seed=6)
+    if case == "hot_src":
+        src[40:3040] = 7
+    need = block_align_edges_transposed(src, dst, etyp, mask, N, eblk=eblk,
+                                        rows=rows)[6]
+    plan = block_align_edges_transposed(src, dst, etyp, mask, N, eblk=eblk,
+                                        rows=rows, num_blocks=need + extra)
+    dev = torch.device("cuda")
+    g = np.random.default_rng(7).uniform(-1, 1, (N, Cout)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (g, x, att, basis)]
+    plan = tuple(torch.from_numpy(a).to(dev) for a in plan[:6])
+    want = rgcn_aggregate_bwd_ref(*(a.double() for a in args), plan, rows)
+    terms = rgcn_aggregate_bwd_ref(*(a.double().abs() for a in args), plan, rows)
+    before = rgcn_aggregate_bwd.launches
+    got = rgcn_aggregate_bwd(*args, plan, rows)
+    no_dx = rgcn_aggregate_bwd(*args, plan, rows, need_dx=False)
+    torch.cuda.synchronize()
+    assert rgcn_aggregate_bwd.launches == before + 2 and no_dx[0] is None
+    for name, gv, wv, tv in zip(("dx", "datt", "dbasis"), got, want, terms):
+        assert_close_to_terms(gv, wv, tv, name)
+    for name, gv, wv, tv in zip(("datt", "dbasis"), no_dx[1:], want[1:], terms[1:]):
+        assert_close_to_terms(gv, wv, tv, name + " without dx")
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_matches_cpu():
+    """Gradients through rgcn_aggregate on the card (K1 forward, K2
+    backward) vs the CPU's plain versions, in float32: rtol 1e-5 and atol
+    1e-4 of the largest entry (summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, E, R, B, cin, Cout, rows, eblk = 512, 6000, 5, 4, 32, 32, 256, 1024
+    (src, dst, etyp, mask), (x, att, basis) = make_case(
+        "random", N, E, R, B, cin, Cout, seed=8)
+    af = block_align_edges(src, dst, etyp, mask, N, eblk=eblk, rows=rows,
+                           num_blocks=12)[:6]
+    at = block_align_edges_transposed(src, dst, etyp, mask, N, eblk=eblk,
+                                      rows=rows, num_blocks=12)[:6]
+    w = np.random.default_rng(9).uniform(-1, 1, (N, Cout)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in (x, att, basis)]
+        out = rgcn_aggregate(*ts, tuple(torch.from_numpy(a).to(dev) for a in af),
+                             rows, N, tuple(torch.from_numpy(a).to(dev) for a in at))
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in ts]
+    for name, gc, gg in zip(("dx", "datt", "dbasis"), grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(gg, gc, rtol=1e-5,
+                                   atol=1e-4 * float(gc.abs().max()), msg=name)

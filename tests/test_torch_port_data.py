@@ -161,11 +161,47 @@ def test_batches_match_jax_pallas_loader(splits, monkeypatch, mnph, rows, eblk):
             assert isinstance(gv, torch.Tensor), f
             np.testing.assert_array_equal(gv.numpy(), wv, err_msg=f)
             assert gv.numpy().dtype == wv.dtype, f
-        assert len(g.aligned) == 6
-        for ga, wa in zip(g.aligned, w.aligned[:6]):
+        # (src, dst_local, etype, mask, chunk_of_block, first_of_chunk, ukey)
+        assert len(g.aligned) == len(w.aligned) == 7
+        for ga, wa in zip(g.aligned, w.aligned):
             np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
             assert ga.numpy().dtype == np.asarray(wa).dtype
+        # an evaluation loader builds no twin plan (JAX's builds one anyway)
+        assert g.aligned_t is None
         assert g.num_nodes % rows == 0
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_training_batches_match_jax_shuffled_loader(splits, seed):
+    """A training loader (shuffle=True) draws JAX's order per epoch and
+    attaches both plans with their ukey streams, equal to JAX's."""
+    want_split, got_split = splits
+    links = (want_split.train_u_indices, want_split.train_v_indices)
+    want_ds = JaxStaticGraphDataset(
+        None, want_split.adj_train, links, want_split.train_labels, h=1,
+        max_nodes_per_hop=100, class_values=want_split.class_values,
+        max_num=120, backend="numpy", progress=False)
+    got_ds = StaticGraphDataset(
+        got_split.adj_train, links, got_split.train_labels, h=1,
+        max_nodes_per_hop=100, class_values=got_split.class_values, max_num=120)
+    want_loader = JaxBatchLoader(want_ds, 50, shuffle=True, seed=seed,
+                                 device_put=False, prefetch=0,
+                                 flat_aggregate="pallas")
+    got_loader = BatchLoader(got_ds, 50, shuffle=True, seed=seed)
+    for epoch in (0, 1, 7):
+        want_loader.epoch = got_loader.epoch = epoch
+        want_batches, got_batches = list(want_loader), list(got_loader)
+        assert got_loader.epoch == want_loader.epoch == epoch + 1
+        assert len(got_batches) == len(want_batches) == 3
+        for g, w in zip(got_batches, want_batches):
+            np.testing.assert_array_equal(g.y.numpy(), np.asarray(w.y))
+            for plan in ("aligned", "aligned_t"):
+                gp, wp = getattr(g, plan), getattr(w, plan)
+                assert len(gp) == len(wp) == 7, plan
+                for ga, wa in zip(gp, wp):
+                    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa),
+                                                  err_msg=plan)
+                    assert ga.numpy().dtype == np.asarray(wa).dtype, plan
 
 
 def test_graph_batch_to_moves_every_tensor(splits):
@@ -174,10 +210,10 @@ def test_graph_batch_to_moves_every_tensor(splits):
         got_split.adj_train, (got_split.test_u_indices, got_split.test_v_indices),
         got_split.test_labels, h=1, class_values=got_split.class_values,
         max_num=10)
-    batch = next(iter(BatchLoader(ds, 10)))
+    batch = next(iter(BatchLoader(ds, 10, shuffle=True)))
     moved = batch.to("meta")
     for f in dataclasses.fields(moved):
-        if f.name != "aligned":
+        if f.name not in ("aligned", "aligned_t"):
             assert getattr(moved, f.name).device.type == "meta", f.name
-    assert all(a.device.type == "meta" for a in moved.aligned)
+    assert all(a.device.type == "meta" for a in moved.aligned + moved.aligned_t)
     assert batch.edge_src.device.type == "cpu"   # the original stays put

@@ -56,7 +56,8 @@ def test_block_align_edges_matches_jax(case, extra):
                                  rows=rows, num_blocks=need + extra)
     got = block_align_edges(src, dst, etyp, mask, N, eblk=eblk, rows=rows,
                             num_blocks=need + extra)
-    assert len(got) == 7
+    assert len(got) == len(want) == 8
+    assert got[7] is None and want[7] is None   # no pair ids, no ukey
     for g, w in zip(got[:6], want[:6]):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)

@@ -172,11 +172,15 @@ def test_forward_matches_jax_pallas(data, monkeypatch, aggr, rows, eblk):
 
 
 def test_forward_refuses_training_mode_and_other_aggr(data):
+    """Training mode without its noise and aggregations the kernel lacks
+    raise; a gradient through an evaluation batch (no twin plan) raises."""
     _, got_ds = data
     batch = next(iter(BatchLoader(got_ds, 10)))
     model = IGMC(port_cfg(), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="eval"):
+    with pytest.raises(ValueError, match="eval"):
         model.train()(batch)
+    with pytest.raises(RuntimeError, match="shuffle=True"):
+        model.eval()(batch)
     relmean = IGMC(IGMCConfig(aggr="relmean"), torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="relmean"):
         relmean.eval()(batch)

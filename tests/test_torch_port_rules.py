@@ -101,11 +101,20 @@ def test_resolving_a_device_turns_tf32_off(monkeypatch):
 def test_kernel_sources_are_packaged_and_build_paths_are_content_hashed():
     from igmc_torch.kernels import build
 
-    name = "rgcn_aggregate_fwd"
-    assert os.path.isfile(os.path.join(build.CSRC_DIR, f"{name}.cu"))
-    path = build.library_path(name)
-    assert path.startswith(build.BUILD_DIR)
-    assert path == build.library_path(name)   # stable for one source
+    assert build.KERNELS == ("rgcn_aggregate_fwd", "rgcn_aggregate_bwd")
+    paths = set()
+    for name in build.KERNELS:
+        source = os.path.join(build.CSRC_DIR, f"{name}.cu")
+        assert os.path.isfile(source)
+        text = open(source).read()
+        # a plain C interface, bound with ctypes: no PyTorch headers
+        assert f'extern "C" int {name}(' in text
+        assert "<torch/" not in text and "ATen" not in text
+        path = build.library_path(name)
+        assert path.startswith(build.BUILD_DIR)
+        assert path == build.library_path(name)   # stable for one source
+        paths.add(path)
+    assert len(paths) == len(build.KERNELS)
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     pyproject = open(os.path.join(REPO, "pyproject.toml")).read()
     assert '"igmc_torch*"' in pyproject and '"csrc/*.cu"' in pyproject
