@@ -17,10 +17,14 @@ non-zero:
   4. kernel check: each kernel against its plain PyTorch version (run in
      float64) on the card at the main path's shapes (one real ML-1M batch
      at Cin 4 and 32, a hot row spanning several blocks, a plan with 64
-     extra padding blocks), with CUDA-event times of the kernel and of the
-     plain version in float32 and the least time the card could take:
-     K1 (forward) rtol 1e-5 / atol 1e-4; K2 (backward: dx, datt, dbasis)
-     within 1e-5 of each entry's sum of absolute terms;
+     extra padding blocks, and test batch 0's edges with their relations
+     redrawn over R = 71 and planned anew), with the kernel's device time
+     per launch (profiler), its time on the edges of the batch's heaviest
+     chunk alone (one cluster's work), the CUDA-event time of the wrapper
+     call, the plain version's time in float32 and the least time the card
+     could take, beside PR 2's recorded kernel times: K1 (forward) rtol 1e-5 /
+     atol 1e-4; K2 (backward: dx, datt, dbasis) within 1e-5 of each entry's
+     sum of absolute terms;
   5. evaluation path: a two-checkpoint ensemble of full-width IGMC (random
      weights from two generator seeds, saved as `.pth`) through
      `test_once(..., device="cuda")`, with K1's launch count read right
@@ -52,6 +56,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,6 +73,11 @@ PEAK_F32_FLOP_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-4          # K1 vs plain version: summation order
 TERMS_RTOL = 1e-5                # K2 vs plain version, per sum of |terms|
 PRED_ATOL = 1e-4                 # card vs CPU predictions
+MANY_RELATIONS = 71              # yahoo_music's rating levels
+# the kernels' times per launch before their redesign (chip_smoke, PR 2,
+# NVIDIA H100 80GB HBM3, 700.00 W), by Cin
+PR2_MS = {"rgcn_aggregate_fwd": {32: 0.3923, 4: 0.1159},
+          "rgcn_aggregate_bwd": {32: 0.5793, 4: 0.4720}}
 GRAD_TOL = 1e-4                  # card vs CPU training step
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
 BATCH_SIZE = 50                  # the CLI's default batch
@@ -102,6 +112,27 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Device milliseconds per launch of the kernel whose name contains
+    `name`, over `reps` calls of `fn()` (torch.profiler's device time): the
+    kernel alone, without the host time of the wrapper around it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key and e.device_time_total > 0]
+    count = sum(e.count for e in hits)
+    if count != reps:
+        fail(f"profiler saw {count} launches of {name}, expected {reps}")
+    return sum(e.device_time_total for e in hits) / 1e3 / count
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -218,9 +249,11 @@ def operands(b0, cin, R, B, cout, gen):
     return x, att, basis, g
 
 
-def hot_plans(b, R, hot_side: str, transposed: bool):
-    """A real batch's edges plus 3,000 edges into (or out of) node 5, and
-    its plan with 64 extra padding blocks, as the loader would build them."""
+def hot_plans(b, b_test, R, hot_side: str, transposed: bool):
+    """A real batch's edges plus 3,000 edges into (or out of) node 5, its
+    plan with 64 extra padding blocks, as the loader would build them, and
+    the plan of test batch 0's edges with relations redrawn over
+    MANY_RELATIONS; each with its number of relations."""
     import torch
     from igmc_torch.kernels.rgcn_aggregate import (
         block_align_edges, block_align_edges_transposed)
@@ -236,32 +269,84 @@ def hot_plans(b, R, hot_side: str, transposed: bool):
     five = np.full(hot, 5, np.int32)
     hs, hd = (five, other) if hot_side == "src" else (other, five)
     need = align(src, dst, typ, msk, N)[6]
+    many = torch.randint(0, MANY_RELATIONS, (b_test.edge_type.numel(),),
+                         generator=rng, dtype=torch.int32).numpy()
     return {
-        f"hot_{hot_side}": align(
+        f"hot_{hot_side}": (align(
             np.concatenate([src, hs]), np.concatenate([dst, hd]),
             np.concatenate([typ, hot_typ]),
-            np.concatenate([msk, np.ones(hot, bool)]), N)[:6],
-        "padding_blocks": align(src, dst, typ, msk, N, num_blocks=need + 64)[:6],
+            np.concatenate([msk, np.ones(hot, bool)]), N)[:6], R),
+        "padding_blocks": (align(src, dst, typ, msk, N, num_blocks=need + 64)[:6], R),
+        f"test_batch0_r{MANY_RELATIONS}": (align(
+            b_test.edge_src.numpy(), b_test.edge_dst.numpy(), many,
+            b_test.edge_mask.numpy(), b_test.num_nodes)[:6], MANY_RELATIONS),
     }, need
 
 
+def _summary(name, results):
+    """One line per kernel: its device time per launch at Cin 4 and 32, its
+    bound and share of the bound, and PR 2's time beside it."""
+    parts = []
+    for cin in (4, 32):
+        r, before = results[cin], PR2_MS[name][cin]
+        parts.append(f"cin={cin} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
+                     f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; PR 2 "
+                     f"{before:.4f} ms, {before / r['ms']:.2f}x faster now; "
+                     f"heaviest chunk alone {r['heavy_chunk_ms']:.4f} ms)")
+    print(f"[kernel] {name} per launch: " + "; ".join(parts), flush=True)
+
+
+def heaviest_chunk_plan(b, transposed: bool):
+    """The plan of a batch's edges restricted to the chunk (of scatter rows)
+    that holds the most edges, at the batch's plan capacity: the work of
+    the kernel's slowest cluster alone. Returns (plan, chunk, its edges)."""
+    from igmc_torch.kernels.rgcn_aggregate import (
+        block_align_edges, block_align_edges_transposed)
+
+    src, dst = b.edge_src.numpy(), b.edge_dst.numpy()
+    typ, msk = b.edge_type.numpy(), b.edge_mask.numpy()
+    scatter = src if transposed else dst
+    per_chunk = np.bincount(scatter[msk] // ROWS, minlength=b.num_nodes // ROWS)
+    heavy = int(per_chunk.argmax())
+    align = block_align_edges_transposed if transposed else block_align_edges
+    plan = align(src, dst, typ, msk & (scatter // ROWS == heavy), b.num_nodes,
+                 num_blocks=b.aligned[4].numel())[:6]
+    return plan, heavy, int(per_chunk[heavy])
+
+
+def time_heaviest_chunk(name, call, b, transposed, cin, dev):
+    """The kernel's device ms per launch of `call(plan)` on the plan of
+    heaviest_chunk_plan: its slowest cluster's work alone."""
+    import torch
+
+    plan, heavy, n = heaviest_chunk_plan(b, transposed)
+    plan = tuple(torch.as_tensor(a).to(dev) for a in plan)
+    with torch.no_grad():
+        ms = kernel_ms(lambda: call(plan), name, 50)
+    print(f"[kernel] {name} cin={cin} on the edges of its heaviest chunk alone (chunk "
+          f"{heavy}, {n} edges, one cluster of {b.num_nodes // ROWS}): "
+          f"{ms:.4f} ms", flush=True)
+    return ms
+
+
 def check_k1(b0, R, B, COUT, dev, gen):
-    """K1 against its float64 plain version; times at batch 0."""
+    """K1 against its float64 plain version on four plans; times at test
+    batch 0."""
     import torch
     from igmc_torch.kernels.rgcn_aggregate import rgcn_aggregate, rgcn_aggregate_ref
 
     N = b0.num_nodes
-    extra, need = hot_plans(b0, R, "dst", transposed=False)
+    extra, need = hot_plans(b0, b0, R, "dst", transposed=False)
     per_chunk = np.bincount(b0.aligned[4].numpy())
     print(f"[kernel] test batch 0 plan: {b0.aligned[4].shape[0]} blocks "
           f"(capacity), {need} needed; blocks per chunk: chunk 0 "
           f"{per_chunk[0]}, others {per_chunk[1:].min()}-{per_chunk[1:].max()}")
-    plans = {"ml1m_batch0": b0.aligned[:6], **extra}
+    plans = {"ml1m_batch0": (b0.aligned[:6], R), **extra}
     results, max_err = {}, 0.0
-    for plan_name, plan in plans.items():
+    for plan_name, (plan, nrel) in plans.items():
         aligned = tuple(torch.as_tensor(a).to(dev) for a in plan)
         for cin in (4, 32):
-            x, att, basis, _ = (t.to(dev) for t in operands(b0, cin, R, B, COUT, gen))
+            x, att, basis, _ = (t.to(dev) for t in operands(b0, cin, nrel, B, COUT, gen))
             with torch.no_grad():
                 got = rgcn_aggregate(x, att, basis, aligned, ROWS, N)
                 # the plain version in float64, so that the comparison sees
@@ -276,44 +361,55 @@ def check_k1(b0, R, B, COUT, dev, gen):
             except AssertionError as e:
                 fail(f"rgcn_aggregate_fwd disagrees with the plain version on "
                      f"{plan_name} cin={cin}: {e}")
-            line = (f"[kernel] rgcn_aggregate_fwd {plan_name} cin={cin}: "
+            line = (f"[kernel] rgcn_aggregate_fwd {plan_name} (R {nrel}) cin={cin}: "
                     f"max_abs_err {err:.3e} (rtol {RTOL}, atol {ATOL})")
             if plan_name == "ml1m_batch0":
                 with torch.no_grad():
-                    ms = cuda_ms(lambda: rgcn_aggregate(x, att, basis, aligned, ROWS, N), 50)
+                    call = lambda: rgcn_aggregate(x, att, basis, aligned, ROWS, N)
+                    ms = kernel_ms(call, "rgcn_aggregate_fwd", 50)
+                    call_ms = cuda_ms(call, 50)
                     plain_ms = cuda_ms(lambda: rgcn_aggregate_ref(x, att, basis, aligned, ROWS, N), 20)
                 bnd = aggregate_bound(x, att, basis, aligned)
-                results[cin] = dict(ms=ms, plain_ms=plain_ms,
+                heavy_ms = time_heaviest_chunk(
+                    "rgcn_aggregate_fwd",
+                    lambda p: rgcn_aggregate(x, att, basis, p, ROWS, N), b0, False,
+                    cin, dev)
+                results[cin] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                    heavy_chunk_ms=heavy_ms,
                                     ep=int(aligned[0].numel()), **bnd)
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                line += (f"; kernel {ms:.4f} ms on the card (wrapper call "
+                         f"{call_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} ms, "
                          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
                          f"{bnd['flops']:.3e} FLOP, {bnd['nbytes']:.3e} B; "
                          f"{bnd['e_real']} real of {aligned[0].numel()} edge "
                          f"slots, {bnd['pairs']} (src, relation) pairs, N {N}); "
-                         f"K1's basis-mix FLOP alone {bnd['form_ms']:.4f} ms")
+                         f"the TPU kernel's basis-mix FLOP alone {bnd['form_ms']:.4f} ms")
             print(line, flush=True)
+    _summary("rgcn_aggregate_fwd", results)
     return results, max_err
 
 
-def check_k2(bt, R, B, COUT, dev, gen):
+def check_k2(bt, b0, R, B, COUT, dev, gen):
     """K2 against its float64 plain version on the training batch's twin
-    plan, a hot source row and extra padding; times at batch 0."""
+    plan, a hot source row, extra padding and test batch 0's edges over
+    MANY_RELATIONS; times at training batch 0."""
     import torch
     from igmc_torch.kernels.rgcn_aggregate import (rgcn_aggregate_bwd,
                                                    rgcn_aggregate_bwd_ref)
 
-    extra, need = hot_plans(bt, R, "src", transposed=True)
+    extra, need = hot_plans(bt, b0, R, "src", transposed=True)
     per_chunk = np.bincount(bt.aligned_t[4].numpy())
     print(f"[kernel] training batch 0 twin plan: {bt.aligned_t[4].shape[0]} "
           f"blocks (capacity), {need} needed; blocks per chunk: chunk 0 "
           f"{per_chunk[0]}, others {per_chunk[1:].min()}-{per_chunk[1:].max()}")
-    plans = {"ml1m_train_batch0": bt.aligned_t[:6], **extra}
+    plans = {"ml1m_train_batch0": (bt.aligned_t[:6], R), **extra}
     names = ("dx", "datt", "dbasis")
     results, max_err = {}, dict.fromkeys(names, 0.0)
-    for plan_name, plan in plans.items():
+    for plan_name, (plan, nrel) in plans.items():
         plan = tuple(torch.as_tensor(a).to(dev) for a in plan)
+        batch = b0 if nrel == MANY_RELATIONS else bt
         for cin in (4, 32):
-            x, att, basis, g = (t.to(dev) for t in operands(bt, cin, R, B, COUT, gen))
+            x, att, basis, g = (t.to(dev) for t in operands(batch, cin, nrel, B, COUT, gen))
             with torch.no_grad():
                 got = rgcn_aggregate_bwd(g, x, att, basis, plan, ROWS)
                 want = rgcn_aggregate_bwd_ref(g.double(), x.double(), att.double(),
@@ -335,27 +431,36 @@ def check_k2(bt, R, B, COUT, dev, gen):
                          f"version on {plan_name} cin={cin}: entry {i} "
                          f"{float(gv.flatten()[i])} vs {float(wv.flatten()[i])}, "
                          f"sum of |terms| {float(tv.flatten()[i])}")
-            line = (f"[kernel] rgcn_aggregate_bwd {plan_name} cin={cin}: max_abs_err "
-                    f"dx {errs[0]:.3e}, datt {errs[1]:.3e}, dbasis {errs[2]:.3e} "
-                    f"(within {TERMS_RTOL} of each entry's sum of |terms|)")
+            line = (f"[kernel] rgcn_aggregate_bwd {plan_name} (R {nrel}) cin={cin}: "
+                    f"max_abs_err dx {errs[0]:.3e}, datt {errs[1]:.3e}, dbasis "
+                    f"{errs[2]:.3e} (within {TERMS_RTOL} of each entry's sum of |terms|)")
             if plan_name == "ml1m_train_batch0":
                 need_dx = cin != 4     # layer 1's one-hot input needs no dx
                 with torch.no_grad():
-                    ms = cuda_ms(lambda: rgcn_aggregate_bwd(
-                        g, x, att, basis, plan, ROWS, need_dx=need_dx), 50)
+                    call = lambda: rgcn_aggregate_bwd(g, x, att, basis, plan, ROWS,
+                                                      need_dx=need_dx)
+                    ms = kernel_ms(call, "rgcn_aggregate_bwd", 50)
+                    call_ms = cuda_ms(call, 50)
                     plain_ms = cuda_ms(lambda: rgcn_aggregate_bwd_ref(
                         g, x, att, basis, plan, ROWS), 20)
                 bnd = aggregate_bwd_bound(x, att, basis, plan, need_dx)
-                results[cin] = dict(ms=ms, plain_ms=plain_ms, need_dx=need_dx,
+                heavy_ms = time_heaviest_chunk(
+                    "rgcn_aggregate_bwd",
+                    lambda p: rgcn_aggregate_bwd(g, x, att, basis, p, ROWS,
+                                                 need_dx=need_dx), bt, True, cin, dev)
+                results[cin] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                    heavy_chunk_ms=heavy_ms, need_dx=need_dx,
                                     ep=int(plan[0].numel()), **bnd)
-                line += (f"; kernel {ms:.4f} ms (dx {'on' if need_dx else 'off'}, "
-                         f"as the main path), plain {plain_ms:.4f} ms, bound "
-                         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
+                line += (f"; kernel {ms:.4f} ms on the card (dx "
+                         f"{'on' if need_dx else 'off'}, as the main path; wrapper "
+                         f"call {call_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} "
+                         f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
                          f"{bnd['flops']:.3e} FLOP, {bnd['nbytes']:.3e} B; "
                          f"{bnd['e_real']} real of {plan[0].numel()} edge slots, "
                          f"(src, dst) relation pairs {bnd['pairs']}); the TPU "
                          f"kernel's basis-form FLOP alone {bnd['form_ms']:.4f} ms")
             print(line, flush=True)
+    _summary("rgcn_aggregate_bwd", results)
     return results, max_err
 
 
@@ -468,6 +573,8 @@ def main() -> None:
             for line in report.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
+                if any(n != "0" for n in re.findall(r"(\d+) bytes spill", line)):
+                    print(f"[build] {name}: WARNING: ptxas reports spills")
 
     # ---- 3. data -----------------------------------------------------------
     with phase("data"):
@@ -511,7 +618,7 @@ def main() -> None:
     with phase("kernel check"):
         gen = torch.Generator().manual_seed(7)
         k1, k1_err = check_k1(batches[0], R, B, COUT, dev, gen)
-        k2, k2_err = check_k2(train_batches[0], R, B, COUT, dev, gen)
+        k2, k2_err = check_k2(train_batches[0], batches[0], R, B, COUT, dev, gen)
 
     cfg = IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32),
                      num_relations=R, num_bases=4, adj_dropout=0.2)
@@ -567,7 +674,11 @@ def main() -> None:
                     for b in dev_batches:
                         model(b)
 
-            profile(forward_all, "forward", f"{len(dev_batches)} batches")
+            by_key, busy_ms, _ = profile(forward_all, "forward",
+                                         f"{len(dev_batches)} batches")
+            k1_ms = sum(v for k, v in by_key.items() if "rgcn_aggregate_fwd" in k)
+            print(f"[profile]   device forward {busy_ms / len(dev_batches):.4f} ms "
+                  f"of kernels per batch; K1 share {k1_ms / max(busy_ms, 1e-9):.3f}")
             cpu_model = IGMC(cfg, torch.Generator().manual_seed(0))
             cpu_model.load_state_dict(states[-1])
             cpu_model.eval()
@@ -657,9 +768,9 @@ def main() -> None:
             share = {k: sum(v for key, v in by_key.items() if k in key)
                      / max(busy_ms, 1e-9)
                      for k in ("rgcn_aggregate_fwd", "rgcn_aggregate_bwd")}
-            print(f"[profile]   device-time shares: K1 "
-                  f"{share['rgcn_aggregate_fwd']:.3f}, K2 "
-                  f"{share['rgcn_aggregate_bwd']:.3f}")
+            print(f"[profile]   {busy_ms / len(dev_train):.4f} ms of kernels per "
+                  f"step; device-time shares: K1 {share['rgcn_aggregate_fwd']:.3f}, "
+                  f"K2 {share['rgcn_aggregate_bwd']:.3f}")
 
         # ---- 7. card against CPU ---------------------------------------------
         with phase("card against CPU"):
@@ -716,8 +827,12 @@ def main() -> None:
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": err, "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
-            "library_ms": None,
-            "cin4": {k: res[4][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "call_ms": r32["call_ms"],
+            "heavy_chunk_ms": r32["heavy_chunk_ms"],
+            "share_of_bound": r32["bound_ms"] / r32["ms"], "pr2_ms": PR2_MS[name][32],
+            "cin4": {k: res[4][k] for k in ("ms", "call_ms", "heavy_chunk_ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                    | {"pr2_ms": PR2_MS[name][4]},
             "tpu_form_ms": {"cin32": r32["form_ms"], "cin4": res[4]["form_ms"]},
             "shape": (f"ML-1M batch 0: N {batches[0].num_nodes}, {r32['e_real']} "
                       f"real of {r32['ep']} edge slots, Cin 32, Cout {COUT}, "

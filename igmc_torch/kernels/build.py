@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` (KERNELS) exposes a plain C interface and is
 compiled on first use into `kernels/build/lib<name>-<hash>.so`, where the
-hash covers the source and the compiler flags: an edited source rebuilds,
-an unchanged one loads the library already built. `build_many` starts one
+hash covers the source, the shared headers of csrc/ and the compiler
+flags: an edited source rebuilds, an unchanged one loads the library
+already built. `build_many` starts one
 nvcc per source, all at once. The ptxas report (registers, shared memory,
 spills) is kept beside each library as `.log`.
 
@@ -50,9 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from csrc/<name>.cu lives (content-hashed)."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from csrc/<name>.cu lives, hashed over the
+    source, the headers in csrc/ it may include, and the compiler flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -6,74 +6,100 @@
 //
 //   out[dst_e] += mask_e * sum_b att[etype_e, b] * (x[src_e] @ basis[b])
 //
-// it computes, in one pass over the src-sorted twin plan
-// (block_align_edges_transposed), with gv_e = mask_e * g[dst_e],
-// ae_e = att[etype_e] and t_b = gv_e @ basis[b]^T:
+// it computes dx (if wanted), datt and dbasis in one launch over the
+// src-sorted twin plan (block_align_edges_transposed).
 //
-//   dx[src_e]        += sum_b ae_e[b] * t_b                (if dx is wanted)
-//   datt[etype_e, b] += <t_b, x[src_e]>
-//   dbasis[b]        += (ae_e[b] * x[src_e])^T outer gv_e
+// The run form. With W_r = sum_b att[r, b] * basis[b], and for each
+// (src, relation) run of the twin plan (it orders each source row's edges
+// by relation) u = sum_e mask_e * g[dst_e]:
 //
-// What bounds it on this card: the function's least work (fold
-// dW_r = sum_e x[src] outer gv per relation, or transform each node's g once
-// per relation for dx) is about 2.8e8 float32 operations and 9 MB at the
-// ML-1M batch shape, so it is bound by operations on the CUDA cores
-// (67 TFLOP/s), at a few microseconds. This kernel keeps the TPU's basis
-// form: 2*B*Cin*Cout operations per edge for the t_b products (8 KFLOP at
-// B 4, Cin 32, Cout 32), plus one [Cin] x [Cout] outer product per run of
-// edges that share a source row for dbasis. The gathers hit L2.
+//   dx[src]  += u @ W_r^T                       (if dx is wanted)
+//   dW_r     += x[src] outer u
+//   datt[r, b] = <basis[b], dW_r>,   dbasis[b] = sum_r att[r, b] * dW_r
 //
-// Design (simple first, not yet fast):
-//   * One CTA per `rows`-row chunk of SOURCE rows. The twin plan packs a
-//     chunk's edges into consecutive blocks (found by binary search on
-//     chunk_of_block, as in the forward kernel), so the CTA owns its dx rows
-//     outright: a [rows, Cin] shared accumulator written once, no global
-//     atomics and no zero fill for dx; the wrapper allocates it with
-//     torch.empty. With dx not wanted (layer 1's one-hot input) it is
-//     neither accumulated nor written.
-//   * dbasis and datt are sums over every edge of the batch. On the TPU they
-//     were one output block revisited by the sequential grid; here the CTAs
-//     run in parallel and in no order. Each CTA accumulates a
-//     [B, Cin, Cout] dbasis partial and [R, B, 32] per-lane datt partials in
-//     shared memory and adds them to the outputs (zeroed by the wrapper)
-//     with one global atomicAdd per element at its end. The TPU's per-slot
-//     dae [B, Ep] array is never written.
-//   * The basis form is kept (no per-relation dW_r accumulator), so shared
-//     memory does not grow with R beyond att and the datt partials: basis^T
-//     16 KB + dbasis 16 KB + dx 32 KB + ~3 KB at R 5 — over the 48 KB
-//     static limit, hence cudaFuncSetAttribute below.
-//   * The CTA's 32 warps take 128-slot groups round robin, and a warp ballot
-//     on the mask skips a 32-slot padding row in one step: the capacity
-//     padding that block_align_edges puts in chunk 0 costs every warp alike.
-//     32 edges' indices are loaded coalesced and broadcast by shuffles; four
-//     edges at a time, lane o loads g[dst][o] and lane i loads x[src][i],
-//     and lane i accumulates t[k][b] = sum_o gv_k[o] * basis[b, i, o] (gv
-//     broadcast by shuffles, each shared-memory basis value serving four
-//     edges; the number of bases is a template parameter, 1 to 8, so t stays
-//     in registers). Lanes are the Cin <= 32 input channels.
-//   * Edges are src-sorted, so a warp carries the running dx row sum and
-//     u_b = sum_e ae_e[b] * gv_e of one source row in registers; when the
-//     row changes it adds the carry to the dx accumulator and
-//     x[src] outer u_b to the dbasis partial (shared-memory atomicAdd).
-//     datt's <t_b, x[src]> is added per edge into lane-private partials,
-//     summed over lanes at the end.
+// so an edge costs Cout adds of its gathered gradient row, and the products
+// shrink to one [Cout] x [Cout, Cin] product and one [Cin] x [Cout] outer
+// product per run (~38 K runs for ~224 K edges at the ML-1M batch), against
+// 2*B*Cin*Cout operations per edge plus per-edge datt atomics in the TPU's
+// basis form.
+//
+// What bounds it on this card: the function is bound by device memory
+// (the mask over every slot, three index arrays over the real edges, x, g,
+// dx and the small outputs: ~9 MB, 0.003 ms at 3.35 TB/s); its ~1.7e8
+// float32 operations take less. This kernel is bound by latency, as the
+// forward is (the gather of g[dst], ~29 MB mostly from L2, behind the
+// index loads), and by the shared-memory atomics that sum dW.
+//
+// Design (the forward kernel's walk, with src and dst swapped):
+//   * A thread-block cluster of kCluster = 4 CTAs of 256 threads per
+//     `rows`-row chunk of SOURCE rows: 200 CTAs at the ML-1M shape, at most
+//     2 per SM. The cluster's 32 warps take the chunk's 128-slot tiles round
+//     robin and skip the tiles with no live slot (one 16-byte mask load per
+//     lane and tile, 8 tiles at once). A live tile is walked as four 32-slot
+//     groups: ballots find the live slots and the run starts, the rows
+//     mask * g[dst] are gathered into the warp's staging (16 loads in
+//     flight), and each (src, relation) run's rows are summed into u, lanes
+//     on the Cout <= 32 channels.
+//   * A finished run goes into the warp's buffer of kRunBuf = 12 runs (u in
+//     shared memory, its source row and relation in a lane's registers).
+//     When the buffer is full (and at the end of a pass) the warp gathers
+//     the buffered runs' x rows at once and takes
+//       - the dx products u @ W_r^T (lanes on the Cin <= 32 channels, u
+//         broadcast from the buffer), in order, into the open source row's
+//         carry, added to the dx accumulator when the row changes;
+//       - the outer products x[src] outer u summed per relation in
+//         registers (lane o holds dW_r[i, o], 16 i at a time) and added to
+//         the CTA's [R, Cin, Cout] shared dW partial once per relation and
+//         buffer, not once per run: at R 5 that cuts the shared atomics
+//         of dW at least 2.4-fold (12 runs, at most 5 relations).
+//   * dx: each CTA owns a quarter of the chunk's source rows as a
+//     [rows/4, Cin] shared accumulator; carries go to the owning CTA through
+//     distributed shared memory; each CTA writes its rows once (no zero
+//     fill; torch.empty). With dx not wanted (layer 1's one-hot input)
+//     neither the accumulator, nor W_r, nor the product exists.
+//   * dW: at the end of a pass the cluster's four partials are summed
+//     through distributed shared memory, each CTA a quarter of the entries,
+//     and added to a zeroed global [R, Cin, Cout] sum with one atomicAdd per
+//     nonzero entry.
+//   * The epilogue: the last CTA to finish (a ticket counter after a
+//     __threadfence, the zeroed word after the global dW sum) folds dW into
+//     datt and dbasis, which it writes whole (torch.empty in the wrapper).
+//     The TPU's per-slot dae [B, Ep] array and the per-edge products are
+//     gone.
+//   * W_r is folded in the prologue into shared memory with a row stride of
+//     Cout + 1, so that the dx product (lane i reads W_r[i, o]) is free of
+//     bank conflicts; 109 KB per CTA in all at R 5, Cin 32, with dx. Where
+//     W_r and the dW partial for all R relations do not fit (R = 71 at
+//     Cin 32 needs ~590 KB), the relations go in groups, one pass over the
+//     chunk per group (four passes of 18 relations at R = 71, Cin 32, dx
+//     wanted); the launcher sizes the groups from the card's shared memory,
+//     so any R runs.
 //   * Summation order differs from the plain PyTorch version and atomics
 //     make it vary between runs: compare with a tolerance.
-// Making it fast (the least-work form, tensor-core tiles, more CTAs than
-// chunks) is later work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "rgcn_aggregate_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 32;
+constexpr int kCluster = 4;      // CTAs per source-row chunk
+constexpr int kWarps = 8;        // warps per CTA
 constexpr int kThreads = kWarps * 32;
-constexpr int kGroup = 128;      // edge slots a warp examines per step (4 x 32)
-constexpr int kQuad = 4;         // edges a warp computes at once
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 128;       // plan slots a warp takes at a time
+constexpr int kAhead = 8;        // tiles whose masks a warp checks at once
+constexpr int kLoads = 16;       // rows a warp gathers at once
+constexpr int kRunBuf = 12;      // finished runs a warp buffers before their products
+// per-warp staging in shared memory: of one 32-slot group the live slots'
+// dst and mask and gathered rows, and the buffered runs' sums and x rows
+constexpr int kStageWords = 2 * 32 + 32 * 32 + 2 * kRunBuf * 32;
 
-template <int NB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
 rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
                           const float* __restrict__ x,
                           const float* __restrict__ att,
@@ -86,218 +112,346 @@ rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
                           float* __restrict__ dx,
                           float* __restrict__ datt,
                           float* __restrict__ dbasis,
-                          int cin, int cout, int nrel, int rows,
-                          int nblk, int eblk) {
+                          float* __restrict__ dw,
+                          unsigned* __restrict__ done,
+                          int cin, int cout, int nb, int nrel, int rows,
+                          int nblk, int eblk, int rel_per_pass) {
   extern __shared__ float smem[];
-  float* s_basisT = smem;                        // [NB, cout, cin]
-  float* s_att = s_basisT + NB * cout * cin;     // [nrel, NB]
-  float* s_db = s_att + nrel * NB;               // [NB, cin, cout]
-  float* s_dattp = s_db + NB * cin * cout;       // [nrel * NB, 32]
-  float* s_dx = s_dattp + nrel * NB * 32;        // [rows, cin]
-  __shared__ int s_range[2];                     // this chunk's block range
-
-  const int chunk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const bool want_dx = dx != nullptr;
+  const int rpc = (rows + kCluster - 1) / kCluster;    // rows each CTA owns
+  const int io_n = cin * cout;
+  const int ldw = cout + 1;
+  const int warp = threadIdx.x >> 5;
+  int* st_idx = reinterpret_cast<int*>(smem) + warp * kStageWords;  // [32]
+  float* st_m = reinterpret_cast<float*>(st_idx + 32);              // [32]
+  float* st_row = st_m + 32;                                        // [32][32]
+  float* st_u = st_row + 32 * 32;                                   // [kRunBuf][32]
+  float* st_x = st_u + kRunBuf * 32;                                // [kRunBuf][32]
+  float* s_dx = smem + kWarps * kStageWords;           // [rpc, cin] if want_dx
+  float* s_dw = s_dx + (want_dx ? rpc * cin : 0);      // [rel_per_pass, cin, cout]
+  float* s_w = s_dw + rel_per_pass * io_n;             // [rel_per_pass, cin, ldw] if want_dx
+  __shared__ long long s_range[2];
+  __shared__ bool s_last;
 
-  if (tid < 2) {
-    // lower_bound(chunk_of_block, chunk + tid)
-    const int key = chunk + tid;
-    int lo = 0, hi = nblk;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (chunk_of_block[mid] < key) lo = mid + 1; else hi = mid;
-    }
-    s_range[tid] = lo;
-  }
-  const int bio = cin * cout;
-  for (int j = tid; j < NB * bio; j += kThreads) {
-    const int b = j / bio, io = j - b * bio, i = io / cout, o = io - i * cout;
-    s_basisT[(b * cout + o) * cin + i] = basis[j];
-    s_db[j] = 0.f;
-  }
-  for (int j = tid; j < nrel * NB; j += kThreads) s_att[j] = att[j];
-  for (int j = tid; j < nrel * NB * 32; j += kThreads) s_dattp[j] = 0.f;
-  if (want_dx)
-    for (int j = tid; j < rows * cin; j += kThreads) s_dx[j] = 0.f;
-  __syncthreads();
-
-  const long long e_begin = (long long)s_range[0] * eblk;
-  const long long e_end = (long long)s_range[1] * eblk;
-  const bool lane_in = lane < cin;     // lane as input channel i
-  const bool lane_out = lane < cout;   // lane as output channel o
-  const int i = lane_in ? lane : 0;    // lanes past cin compute on column 0
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int chunk = blockIdx.x / kCluster;
+  const int lane = threadIdx.x & 31;
+  const int wid = rank * kWarps + warp;                // warp index in the cluster
+  const int stride = kCluster * kWarps;
+  const int ii = lane < cin ? lane : 0;                // lanes past cin compute on 0
+  // a gathered row fills cw lanes (cout rounded up to a power of two), so
+  // one load instruction gathers spl = 32 / cw rows
+  const int cw_log = cout > 1 ? 32 - __clz(cout - 1) : 0;
+  const int cw = 1 << cw_log, spl = 32 >> cw_log;
   const long long row0 = (long long)chunk * rows;
 
-  int cur_row = -1;       // local src row the carries belong to
-  float carry = 0.f;      // sum_b ae[b] * t_b over the row's edges (lane i)
-  float xcur = 0.f;       // x[src][lane] of that row
-  float u[NB];            // sum ae[b] * gv over the row's edges (lane o)
-#pragma unroll
-  for (int b = 0; b < NB; ++b) u[b] = 0.f;
+  chunk_range(chunk_of_block, nblk, chunk, eblk, s_range);
+  if (want_dx)
+    for (int j = threadIdx.x; j < rpc * cin; j += kThreads) s_dx[j] = 0.f;
 
-  // adds the current row's carries to the dx accumulator and the dbasis
-  // partial (warp-uniform: every lane calls it at the same point)
-  auto flush = [&]() {
-    if (cur_row < 0) return;
-    if (want_dx && lane_in) atomicAdd(&s_dx[cur_row * cin + lane], carry);
-    for (int ii = 0; ii < cin; ++ii) {
-      const float xi = __shfl_sync(kFull, xcur, ii);
-      if (lane_out) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-          atomicAdd(&s_db[(b * cin + ii) * cout + lane], xi * u[b]);
+  for (int r0 = 0; r0 < nrel; r0 += rel_per_pass) {
+    const int nr = min(rel_per_pass, nrel - r0);
+    for (int j = threadIdx.x; j < nr * io_n; j += kThreads) s_dw[j] = 0.f;
+    if (want_dx) fold_relations(s_w, ldw, att, basis, r0, nr, cin, cout, nb);
+    // the first time, every CTA's dx accumulator must be zero before any
+    // warp of the cluster adds to it
+    if (r0 == 0) cluster.sync(); else __syncthreads();
+    const long long e_begin = s_range[0], e_end = s_range[1];
+    const int n_tiles = (int)((e_end - e_begin + kTile - 1) / kTile);
+
+    float u = 0.f;     // lane o: sum of mask * g[dst][o] over the open run
+    int cur_s = -1, cur_t = -1;   // the open run's source row and relation
+    int n_buf = 0;     // finished runs in the warp's buffer
+    int buf_s = 0, buf_t = 0;     // lane k: source row and relation of buffered run k
+    float dxc = 0.f;   // lane i: the open dx row's sum of u @ W_r^T
+    int row_s = -1;    // the open dx row
+
+    // the open dx row's carry into the accumulator of the CTA that owns it
+    auto flush_row = [&]() {
+      if (want_dx && row_s >= 0 && lane < cin) {
+        float* acc = cluster.map_shared_rank(s_dx, row_s / rpc);
+        atomicAdd(acc + (row_s % rpc) * cin + lane, dxc);
       }
-    }
-  };
-
-  for (long long g0 = e_begin + (long long)warp * kGroup; g0 < e_end;
-       g0 += (long long)kWarps * kGroup) {
-    for (int sub = 0; sub < kGroup / 32; ++sub) {
-      const long long e = g0 + sub * 32 + lane;
-      const bool valid = e < e_end;
-      const float my_m = valid ? mask[e] : 0.f;
-      if (__ballot_sync(kFull, my_m != 0.f) == 0u) continue;   // all padding
-      const int my_d = valid ? gdst[e] : 0;
-      const int my_s = valid ? srcl[e] : 0;
-      const int my_t = valid ? etype[e] : 0;
-
-      for (int j0 = 0; j0 < 32; j0 += kQuad) {
-        float m[kQuad], gv[kQuad], xv[kQuad], t[kQuad][NB];
-        int s[kQuad], ty[kQuad];
-        bool any = false;
+      dxc = 0.f;
+    };
+    // the buffered runs: their dx products u_k @ W_r^T in order into the
+    // row carries, and their outer products x[src_k] outer u_k summed per
+    // relation in registers (lane o holds dW_r[i, o] for 16 i at a time)
+    // and added to the CTA's dW partial once per relation
+    auto flush_buffer = [&]() {
+      {
+        float v[kRunBuf];   // the runs' x rows, all loads in flight at once
 #pragma unroll
-        for (int k = 0; k < kQuad; ++k) {
-          m[k] = __shfl_sync(kFull, my_m, j0 + k);
-          s[k] = __shfl_sync(kFull, my_s, j0 + k);
-          ty[k] = __shfl_sync(kFull, my_t, j0 + k);
-          const int d = __shfl_sync(kFull, my_d, j0 + k);
-          any = any || m[k] != 0.f;
-          gv[k] = (lane_out && m[k] != 0.f)
-                      ? m[k] * __ldg(g + (long long)d * cout + lane) : 0.f;
-          xv[k] = (lane_in && m[k] != 0.f)
-                      ? __ldg(x + (row0 + s[k]) * cin + lane) : 0.f;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) t[k][b] = 0.f;
-        }
-        if (!any) continue;   // warp-uniform
-        // t[k][b] = sum_o gv_k[o] * basis[b, i, o]
-        for (int o = 0; o < cout; ++o) {
-          float bas[NB];
-#pragma unroll
-          for (int b = 0; b < NB; ++b) bas[b] = s_basisT[(b * cout + o) * cin + i];
-#pragma unroll
-          for (int k = 0; k < kQuad; ++k) {
-            const float go = __shfl_sync(kFull, gv[k], o);
-#pragma unroll
-            for (int b = 0; b < NB; ++b) t[k][b] = fmaf(go, bas[b], t[k][b]);
-          }
+        for (int k = 0; k < kRunBuf; ++k) {
+          const int sk = __shfl_sync(kFull, buf_s, k);
+          v[k] = k < n_buf && lane < cin ? __ldg(x + (row0 + sk) * cin + lane) : 0.f;
         }
 #pragma unroll
-        for (int k = 0; k < kQuad; ++k) {
-          if (m[k] == 0.f) continue;   // warp-uniform: padding or dropped
-          const float* a = s_att + ty[k] * NB;
-          // datt partials: lane i adds t_b[i] * x[src][i] (0 past cin)
-#pragma unroll
-          for (int b = 0; b < NB; ++b)
-            atomicAdd(&s_dattp[(ty[k] * NB + b) * 32 + lane], t[k][b] * xv[k]);
-          if (s[k] != cur_row) {
-            flush();
-            cur_row = s[k];
-            carry = 0.f;
-            xcur = xv[k];
-#pragma unroll
-            for (int b = 0; b < NB; ++b) u[b] = 0.f;
+        for (int k = 0; k < kRunBuf; ++k) st_x[k * 32 + lane] = v[k];
+      }
+      __syncwarp();
+      if (want_dx) {
+        for (int k = 0; k < n_buf; ++k) {
+          const int sk = __shfl_sync(kFull, buf_s, k), tk = __shfl_sync(kFull, buf_t, k);
+          if (sk != row_s) {
+            flush_row();
+            row_s = sk;
           }
-#pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            carry = fmaf(a[b], t[k][b], carry);
-            u[b] = fmaf(a[b], gv[k], u[b]);
+          const float* w = s_w + ((tk - r0) * cin + ii) * ldw;
+          const float* uk = st_u + k * 32;
+          float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+          int o = 0;
+          for (; o + 4 <= cout; o += 4) {
+            a0 = fmaf(uk[o], w[o], a0);
+            a1 = fmaf(uk[o + 1], w[o + 1], a1);
+            a2 = fmaf(uk[o + 2], w[o + 2], a2);
+            a3 = fmaf(uk[o + 3], w[o + 3], a3);
           }
+          for (; o < cout; ++o) a0 = fmaf(uk[o], w[o], a0);
+          dxc += (a0 + a1) + (a2 + a3);
         }
       }
+      unsigned todo = (1u << n_buf) - 1u;
+      while (todo) {
+        const int t = __shfl_sync(kFull, buf_t, __ffs(todo) - 1);
+        const unsigned same = __ballot_sync(kFull, buf_t == t) & todo;
+        todo &= ~same;
+        for (int i0 = 0; i0 < cin; i0 += 16) {
+          float acc[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+          for (unsigned rest = same; rest; rest &= rest - 1u) {
+            const int k = __ffs(rest) - 1;
+            const float uo = st_u[k * 32 + lane];
+            const float* xk = st_x + k * 32 + i0;
+#pragma unroll
+            for (int i = 0; i < 16; ++i) acc[i] = fmaf(xk[i], uo, acc[i]);
+          }
+          if (lane < cout) {
+            float* p = s_dw + ((t - r0) * cin + i0) * cout + lane;
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              if (i0 + i < cin) atomicAdd(p + i * cout, acc[i]);
+          }
+        }
+      }
+      n_buf = 0;
+      __syncwarp();
+    };
+    // the open run into the buffer
+    auto push_run = [&]() {
+      if (cur_t >= 0) {
+        if (n_buf == kRunBuf) flush_buffer();
+        st_u[n_buf * 32 + lane] = u;
+        if (lane == n_buf) {
+          buf_s = cur_s;
+          buf_t = cur_t;
+        }
+        ++n_buf;
+      }
+      u = 0.f;
+    };
+
+    for (int tb = wid; tb < n_tiles; tb += kAhead * stride) {
+      // skip the tiles of this warp's next kAhead that hold no live slot
+      // (one 16-byte mask load per lane and tile)
+      unsigned live_tiles = 0;
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        const long long e = e_begin + (long long)(tb + q * stride) * kTile + 4 * lane;
+        float4 m4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e < e_end) m4 = __ldg(reinterpret_cast<const float4*>(mask + e));
+        const bool any = m4.x != 0.f || m4.y != 0.f || m4.z != 0.f || m4.w != 0.f;
+        live_tiles |= (unsigned)__any_sync(kFull, any) << q;
+      }
+#pragma unroll 1
+      for (int q = 0; q < kAhead; ++q) {
+        if (!((live_tiles >> q) & 1u)) continue;
+        // the tile's slots, one 32-slot group per register
+        const long long base = e_begin + (long long)(tb + q * stride) * kTile;
+        float tm[kTile / 32];
+        int ts[kTile / 32], td[kTile / 32], tt[kTile / 32];
+#pragma unroll
+        for (int k = 0; k < kTile / 32; ++k) {
+          const long long e = base + 32 * k + lane;
+          const bool valid = e < e_end;
+          tm[k] = valid ? __ldg(mask + e) : 0.f;
+          ts[k] = valid ? __ldg(srcl + e) : 0;
+          td[k] = valid ? __ldg(gdst + e) : 0;
+          tt[k] = valid ? __ldg(etype + e) : 0;
+        }
+        static_assert(kTile == 128, "the selects below take four groups");
+#pragma unroll 1
+        for (int k = 0; k < kTile / 32; ++k) {
+          const float m = k == 0 ? tm[0] : k == 1 ? tm[1] : k == 2 ? tm[2] : tm[3];
+          const int s = k == 0 ? ts[0] : k == 1 ? ts[1] : k == 2 ? ts[2] : ts[3];
+          const int d = k == 0 ? td[0] : k == 1 ? td[1] : k == 2 ? td[2] : td[3];
+          const int t = k == 0 ? tt[0] : k == 1 ? tt[1] : k == 2 ? tt[2] : tt[3];
+          const bool on = m != 0.f && (unsigned)(t - r0) < (unsigned)nr;
+          const unsigned live = __ballot_sync(kFull, on);
+          if (!live) continue;
+          // where runs start: each live slot against the live slot before it
+          // (the first against the open run)
+          const unsigned below = live & ((1u << lane) - 1u);
+          const int pj = below ? 31 - __clz(below) : lane;
+          const int ps = __shfl_sync(kFull, s, pj), pt = __shfl_sync(kFull, t, pj);
+          const int prev_s = below ? ps : cur_s, prev_t = below ? pt : cur_t;
+          const unsigned run_start = __ballot_sync(kFull, on && (s != prev_s || t != prev_t));
+          // gather mask * g[dst] of the live slots in slot order: lane ->
+          // (slot rank b0 + lane / cw, channel lane % cw)
+          if (on) {
+            st_idx[__popc(below)] = d;
+            st_m[__popc(below)] = m;
+          }
+          __syncwarp();
+          const int n_live = __popc(live);
+          const int c = lane & (cw - 1);
+          for (int b0 = lane >> cw_log; b0 < n_live; b0 += kLoads * spl) {
+            // kLoads loads in flight, all issued before the stores
+            float v[kLoads];
+#pragma unroll
+            for (int k = 0; k < kLoads; ++k) {
+              const int b = b0 + k * spl;
+              v[k] = b < n_live && c < cout
+                         ? st_m[b] * __ldg(g + (long long)st_idx[b] * cout + c) : 0.f;
+            }
+#pragma unroll
+            for (int k = 0; k < kLoads; ++k)
+              if (b0 + k * spl < 32) st_row[(b0 + k * spl) * 32 + c] = v[k];
+          }
+          __syncwarp();
+          // walk the runs: sum each run's rows, buffer it when the next starts
+          unsigned pending = live;
+          int b = 0;
+          while (pending) {
+            const int j = __ffs(pending) - 1;
+            if ((run_start >> j) & 1u) {           // warp-uniform
+              push_run();
+              cur_s = __shfl_sync(kFull, s, j);
+              cur_t = __shfl_sync(kFull, t, j);
+            }
+            const unsigned later = run_start & pending & (pending - 1u);
+            const unsigned seg = later ? pending & ((later & (0u - later)) - 1u) : pending;
+            const int n = __popc(seg);
+            float a0 = 0.f, a1 = 0.f;
+            int i = 0;
+            for (; i + 2 <= n; i += 2) {
+              a0 += st_row[(b + i) * 32 + lane];
+              a1 += st_row[(b + i + 1) * 32 + lane];
+            }
+            if (i < n) a0 += st_row[(b + i) * 32 + lane];
+            u += a0 + a1;
+            b += n;
+            pending &= ~seg;
+          }
+          __syncwarp();   // the staging is rewritten by the next group
+        }
+      }
     }
+    push_run();
+    flush_buffer();
+    flush_row();
+
+    // this pass's dW partials of the cluster, summed through distributed
+    // shared memory (each CTA a quarter of the entries), into the global sum
+    cluster.sync();
+    for (int j = rank * kThreads + threadIdx.x; j < nr * io_n; j += kCluster * kThreads) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) v += cluster.map_shared_rank(s_dw, q)[j];
+      if (v != 0.f) atomicAdd(dw + (long long)r0 * io_n + j, v);
+    }
+    cluster.sync();   // the partials were read: they may be zeroed or freed
   }
-  flush();
-  __syncthreads();
 
   if (want_dx) {
-    float* dx_chunk = dx + row0 * cin;
-    for (int j = tid; j < rows * cin; j += kThreads) dx_chunk[j] = s_dx[j];
+    const int row_lo = rank * rpc, row_hi = min(rows, row_lo + rpc);
+    float* dx_rows = dx + (row0 + row_lo) * cin;
+    for (int j = threadIdx.x; j < (row_hi - row_lo) * cin; j += kThreads) dx_rows[j] = s_dx[j];
   }
-  for (int j = tid; j < NB * bio; j += kThreads) atomicAdd(&dbasis[j], s_db[j]);
-  for (int j = tid; j < nrel * NB; j += kThreads) {
-    float sum = 0.f;
-    for (int l = 0; l < 32; ++l) sum += s_dattp[j * 32 + l];
-    atomicAdd(&datt[j], sum);
-  }
-}
 
-template <int NB>
-int launch(const float* g, const float* x, const float* att, const float* basis,
-           const int* gdst, const int* srcl, const int* etype, const float* mask,
-           const int* chunk_of_block, float* dx, float* datt, float* dbasis,
-           int n_chunks, int cin, int cout, int nrel, int rows, int nblk,
-           int eblk, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rgcn_aggregate_bwd_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rgcn_aggregate_bwd_kernel<NB><<<n_chunks, kThreads, smem, stream>>>(
-      g, x, att, basis, gdst, srcl, etype, mask, chunk_of_block, dx, datt, dbasis,
-      cin, cout, nrel, rows, nblk, eblk);
-  return (int)cudaGetLastError();
+  // the last CTA to finish folds dW into datt and dbasis
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int p = warp; p < nrel * nb; p += kWarps) {      // datt[r, b] = <basis[b], dW_r>
+    const int r = p / nb, b = p - r * nb;
+    float v = 0.f;
+    for (int io = lane; io < io_n; io += 32)
+      v = fmaf(__ldg(basis + b * io_n + io), __ldcg(dw + (long long)r * io_n + io), v);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    if (lane == 0) datt[p] = v;
+  }
+  for (int io = threadIdx.x; io < io_n; io += kThreads) {  // dbasis[b] = sum_r att[r, b] dW_r
+    float acc[kMaxBases];
+#pragma unroll
+    for (int b = 0; b < kMaxBases; ++b) acc[b] = 0.f;
+    for (int r = 0; r < nrel; ++r) {
+      const float v = __ldcg(dw + (long long)r * io_n + io);
+#pragma unroll
+      for (int b = 0; b < kMaxBases; ++b)
+        if (b < nb) acc[b] = fmaf(__ldg(att + (long long)r * nb + b), v, acc[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kMaxBases; ++b)
+      if (b < nb) dbasis[b * io_n + io] = acc[b];
+  }
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` with one CTA per source-row chunk
-// (num_nodes / rows of them). `datt` and `dbasis` must be zeroed; `dx` is
-// written whole when need_dx is nonzero and ignored otherwise. Returns a
-// cudaError_t as int: 0 on success. The caller checks shapes, dtypes,
-// contiguity, cin <= 32, cout <= 32 and 1 <= nb <= 8 (the number of bases
-// is a template parameter).
+// Launches the kernel on `stream`: one cluster of kCluster CTAs per
+// source-row chunk (num_nodes / rows of them), relations in as few passes
+// as the card's shared memory allows. `work` is a zeroed float32 buffer of
+// nrel * cin * cout + 1 words (the dW sum, then the CTA ticket); `dx` is
+// written whole when need_dx is nonzero and ignored otherwise; datt and
+// dbasis are written whole. Returns a cudaError_t as int: 0 on success. The
+// caller checks shapes, dtypes, contiguity, cin <= 32, cout <= 32 and
+// 1 <= nb <= 8.
 extern "C" int rgcn_aggregate_bwd(const float* g, const float* x,
                                   const float* att, const float* basis,
                                   const int* gdst, const int* srcl,
                                   const int* etype, const float* mask,
                                   const int* chunk_of_block, float* dx,
-                                  float* datt, float* dbasis, int num_nodes,
-                                  int cin, int cout, int nb, int nrel, int rows,
-                                  int nblk, int eblk, int need_dx, void* stream) {
+                                  float* datt, float* dbasis, float* work,
+                                  int num_nodes, int cin, int cout, int nb,
+                                  int nrel, int rows, int nblk, int eblk,
+                                  int need_dx, void* stream) {
   const int n_chunks = num_nodes / rows;
-  if (n_chunks == 0) return 0;
-  const size_t smem = sizeof(float) * (2 * (size_t)nb * cin * cout + (size_t)nrel * nb +
-                                       (size_t)rows * cin + 32 * (size_t)nrel * nb);
-  cudaStream_t st = (cudaStream_t)stream;
-  float* dx_or_null = need_dx ? dx : nullptr;
-#define IGMC_LAUNCH(NB_)                                                             \
-  case NB_:                                                                          \
-    return launch<NB_>(g, x, att, basis, gdst, srcl, etype, mask, chunk_of_block,    \
-                       dx_or_null, datt, dbasis, n_chunks, cin, cout, nrel, rows,    \
-                       nblk, eblk, smem, st);
-  switch (nb) {
-    IGMC_LAUNCH(1)
-    IGMC_LAUNCH(2)
-    IGMC_LAUNCH(3)
-    IGMC_LAUNCH(4)
-    IGMC_LAUNCH(5)
-    IGMC_LAUNCH(6)
-    IGMC_LAUNCH(7)
-    IGMC_LAUNCH(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef IGMC_LAUNCH
-}
-
-extern "C" int rgcn_aggregate_bwd_max_smem(void) {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return bytes;
+  if (n_chunks == 0 || nrel < 1 || nb < 1 || nb > kMaxBases || cin > 32 || cout > 32)
+    return (int)cudaErrorInvalidValue;
+  // the masks are read 16 bytes at a time from the start of each block
+  if (eblk % 4 != 0 || (reinterpret_cast<uintptr_t>(mask) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t fixed =
+      sizeof(float) * ((size_t)kWarps * kStageWords +
+                       (need_dx ? (size_t)((rows + kCluster - 1) / kCluster) * cin : 0));
+  const size_t per_rel = sizeof(float) * (size_t)cin * (cout + (need_dx ? cout + 1 : 0));
+  const size_t room = (size_t)smem_max - 64;     // the static s_range and s_last
+  if (fixed + per_rel > room) return (int)cudaErrorInvalidValue;
+  const int fit = (int)((room - fixed) / per_rel);
+  const int passes = (nrel + fit - 1) / fit;
+  const int rel_per_pass = (nrel + passes - 1) / passes;
+  const size_t smem = fixed + rel_per_pass * per_rel;
+  err = cudaFuncSetAttribute(rgcn_aggregate_bwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  float* dw = work;
+  unsigned* done = reinterpret_cast<unsigned*>(work + (size_t)nrel * cin * cout);
+  rgcn_aggregate_bwd_kernel<<<n_chunks * kCluster, kThreads, smem, (cudaStream_t)stream>>>(
+      g, x, att, basis, gdst, srcl, etype, mask, chunk_of_block, need_dx ? dx : nullptr,
+      datt, dbasis, dw, done, cin, cout, nb, nrel, rows, nblk, eblk, rel_per_pass);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* rgcn_aggregate_bwd_error_string(int err) {

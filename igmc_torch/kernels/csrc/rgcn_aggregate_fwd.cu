@@ -9,60 +9,87 @@
 // messages ([num_nodes, Cout] float32; the mean divides by the degree
 // outside).
 //
-// What bounds it on this card: the function itself is bound by device
-// memory (3.35 TB/s). Folding W_r = att @ basis first, or transforming each
-// node once per relation and gather-summing, leaves 2*Cin*Cout or fewer
-// float32 operations per edge, under the ~16 bytes of index and mask each
-// edge slot costs. This kernel's basis-mix form spends 2*B*Cin*Cout = 8
-// KFLOP per edge at IGMC's widths (B = 4 bases, Cin 32, Cout 32), so its own
-// arithmetic on the float32 CUDA cores (67 TFLOP/s peak) is what bounds it:
-// about 12 times the function's floor at Cin 32. The gathers hit L2 (x is
-// a few MB at most).
+// The run form. With W_r = sum_b att[r, b] * basis[b] folded once,
 //
-// Design (simple first, not yet fast):
-//   * One CTA per `rows`-row output chunk. block_align_edges packs each
-//     chunk's edges into consecutive blocks (chunk_of_block is
-//     nondecreasing, every chunk owns at least one block), so a CTA owns its
-//     output rows outright: no global atomics and no zero-fill pass; the
-//     wrapper allocates the output with torch.empty. A chunk that owned no
-//     block would still be written (with zeros).
-//   * Unlike the TPU kernel, the gathers x[src] and att[etype] happen inside
-//     the kernel (Mosaic could not express them; CUDA can).
-//   * basis [B, Cin, Cout], att [R, B] and a [rows, Cout] float32
-//     accumulator live in dynamic shared memory: 48 KB + 1 KB at rows 256,
-//     over the 48 KB static limit, hence cudaFuncSetAttribute below.
-//     The basis-mix form is kept (W_r = att @ basis is not pre-folded):
-//     with R = 71 relations W_r would no longer fit in shared memory.
-//   * The CTA's 32 warps take 128-slot groups of the chunk's edges round
-//     robin, so the padding at the tail of a chunk (block_align_edges puts
-//     all extra blocks in chunk 0) costs every warp alike; a warp ballot on
-//     the mask skips a padding row of 32 slots in one step. Lanes are the
-//     Cout <= 32 output channels. 32 edges' indices are loaded coalesced and
-//     broadcast by shuffles; four edges at a time, x[src] is loaded one
-//     element per lane and broadcast by shuffles, and lane o accumulates
-//     h[k][b] = sum_i x_i * basis[b, i, o] (each basis value read from shared
-//     memory serves four edges; the number of bases is a template
-//     parameter, 1 to 8, so h stays in registers), then
-//     msg = sum_b att[etype, b] * h[k][b]. Edges are dst-sorted, so a
-//     register carries the running sum of one dst row and is added to the
-//     shared accumulator (shared-memory atomicAdd) only when the row
-//     changes. Masked edges contribute nothing.
+//   out[i] = sum_r (sum_{e: dst_e = i, etype_e = r} mask_e * x[src_e]) @ W_r,
+//
+// so an edge costs Cin adds of its gathered source row, and the products
+// shrink to one [Cin] x [Cin, Cout] product per (dst, relation) run: the
+// plan (block_align_edges) orders each dst row's edges by relation, so a
+// run is a stretch of consecutive slots. At the ML-1M batch that is ~37 K
+// runs for ~216 K edges, against 2*B*Cin*Cout operations per edge in the
+// TPU's basis-mix form.
+//
+// What bounds it on this card: the function is bound by device memory
+// (the mask over every slot, three index arrays over the real edges, x and
+// the output: ~7 MB, 0.002 ms at 3.35 TB/s); its ~1e8 float32 operations
+// take less. This kernel is bound by latency instead: each warp walks its
+// slots through dependent steps (index loads, then the gather of x[src],
+// one Cin-row per edge and ~28 MB at Cin 32, mostly from L2, then the
+// run's product), and the grid holds about 12 warps per SM to hide them.
+//
+// Design:
+//   * A thread-block cluster of kCluster = 4 CTAs of 256 threads per
+//     `rows`-row output chunk: 200 CTAs of 8 warps at the ML-1M shape
+//     (12,800 rows, 50 chunks), at most 2 per SM (128 registers a thread),
+//     so every one of the 132 SMs gets work. The cluster's 32 warps take
+//     the chunk's 128-slot tiles round robin, so the capacity padding that
+//     block_align_edges puts at the tail of chunk 0 costs every warp alike;
+//     a warp checks 8 of its tiles at once with one 16-byte mask load per
+//     lane and tile, and skips the tiles with no live slot.
+//   * A live tile is walked as four 32-slot groups, slots on lanes. Ballots
+//     find the live slots (mask != 0, relation in this pass) and where a run
+//     starts (its (dst, relation) differs from the live slot before it); the
+//     rows mask * x[src] of the live slots are gathered, 16 loads in flight,
+//     into the warp's staging in shared memory (a row fills Cin lanes
+//     rounded up to a power of two, so one load instruction gathers 8 rows
+//     at Cin 4); then lanes are the Cin <= 32 channels and each run's rows
+//     are summed into a register.
+//   * At a run's end, one product with W_r (lanes are the Cout <= 32 output
+//     channels, the run sum broadcast by shuffles, W_r read from shared
+//     memory) goes into the open row's carry, a register. The product is
+//     kept in the walk: deferring the products to a batch (tried) was slower.
+//   * Each CTA owns a quarter of the chunk's output rows as a [rows/4, Cout]
+//     shared accumulator; a warp adds a finished row's carry to the owning
+//     CTA's accumulator through distributed shared memory
+//     (cluster.map_shared_rank, shared atomics). The CTAs write their own
+//     rows once at the end: no global atomics and no zero fill of `out`
+//     (the wrapper allocates it with torch.empty).
+//   * W_r is folded in each CTA's prologue from att and basis into shared
+//     memory ([R, Cin, Cout], 20 KB at R 5, Cin 32, Cout 32; 63 KB per CTA
+//     in all). Where W for all R relations does not fit beside the staging
+//     and the accumulator (yahoo_music's R = 71 needs 291 KB at Cin 32, over
+//     the 227 KB a block can have), the relations go in groups: the kernel
+//     makes one pass over the chunk per group of relations, folding that
+//     group's W_r and taking only the live slots whose relation is in it
+//     (two passes of 36 relations at R = 71, Cin 32). The launcher sizes the
+//     groups from the card's shared memory, so any R runs, with no error and
+//     no fallback.
 //   * Summation order differs from the plain PyTorch version and shared
 //     atomics make it vary between runs: compare with a tolerance.
-// Making it fast (wgmma/mma tiles, TMA, persistent CTAs) is later work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "rgcn_aggregate_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 32;
+constexpr int kCluster = 4;      // CTAs per output chunk
+constexpr int kWarps = 8;        // warps per CTA
 constexpr int kThreads = kWarps * 32;
-constexpr int kGroup = 128;      // edge slots a warp examines per step (4 x 32)
-constexpr int kQuad = 4;         // edges whose messages a warp computes at once
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 128;       // plan slots a warp takes at a time
+constexpr int kAhead = 8;        // tiles whose masks a warp checks at once
+constexpr int kLoads = 16;       // rows a warp gathers at once
+// per-warp staging in shared memory: of one 32-slot group the live slots'
+// src and mask and gathered rows
+constexpr int kStageWords = 2 * 32 + 32 * 32;
 
-template <int NB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
 rgcn_aggregate_fwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ att,
                           const float* __restrict__ basis,
@@ -72,133 +99,190 @@ rgcn_aggregate_fwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ mask,
                           const int* __restrict__ chunk_of_block,
                           float* __restrict__ out,
-                          int cin, int cout, int nrel, int rows,
-                          int nblk, int eblk) {
+                          int cin, int cout, int nb, int nrel, int rows,
+                          int nblk, int eblk, int rel_per_pass) {
   extern __shared__ float smem[];
-  float* s_basis = smem;                       // [NB, cin, cout]
-  float* s_att = s_basis + NB * cin * cout;    // [nrel, NB]
-  float* s_acc = s_att + nrel * NB;            // [rows, cout]
-  __shared__ int s_range[2];                   // this chunk's block range
+  const int rpc = (rows + kCluster - 1) / kCluster;   // rows each CTA owns
+  const int warp = threadIdx.x >> 5;
+  int* st_src = reinterpret_cast<int*>(smem) + warp * kStageWords;  // [32]
+  float* st_m = reinterpret_cast<float*>(st_src + 32);               // [32]
+  float* st_row = st_m + 32;                                         // [32][32]
+  float* s_acc = smem + kWarps * kStageWords;          // [rpc, cout]
+  float* s_w = s_acc + rpc * cout;                     // [rel_per_pass, cin, cout]
+  __shared__ long long s_range[2];
 
-  const int chunk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int chunk = blockIdx.x / kCluster;
+  const int lane = threadIdx.x & 31;
+  const int wid = rank * kWarps + warp;                // warp index in the cluster
+  const int stride = kCluster * kWarps;
+  const int o = lane < cout ? lane : 0;                // lanes past cout compute on 0
+  // a gathered row fills cw lanes (cin rounded up to a power of two), so one
+  // load instruction gathers spl = 32 / cw rows
+  const int cw_log = cin > 1 ? 32 - __clz(cin - 1) : 0;
+  const int cw = 1 << cw_log, spl = 32 >> cw_log;
 
-  if (tid < 2) {
-    // lower_bound(chunk_of_block, chunk + tid): first block of chunk (tid 0)
-    // and first block past it (tid 1)
-    const int key = chunk + tid;
-    int lo = 0, hi = nblk;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (chunk_of_block[mid] < key) lo = mid + 1; else hi = mid;
-    }
-    s_range[tid] = lo;
-  }
-  for (int i = tid; i < NB * cin * cout; i += kThreads) s_basis[i] = basis[i];
-  for (int i = tid; i < nrel * NB; i += kThreads) s_att[i] = att[i];
-  for (int i = tid; i < rows * cout; i += kThreads) s_acc[i] = 0.f;
-  __syncthreads();
+  chunk_range(chunk_of_block, nblk, chunk, eblk, s_range);
+  for (int j = threadIdx.x; j < rpc * cout; j += kThreads) s_acc[j] = 0.f;
 
-  const long long e_begin = (long long)s_range[0] * eblk;
-  const long long e_end = (long long)s_range[1] * eblk;
-  const bool lane_out = lane < cout;
-  const int o = lane_out ? lane : 0;   // lanes past cout compute on column 0
-  int cur_row = -1;                    // dst row the carry belongs to
-  float carry = 0.f;
+  for (int r0 = 0; r0 < nrel; r0 += rel_per_pass) {
+    const int nr = min(rel_per_pass, nrel - r0);
+    if (r0 > 0) __syncthreads();            // the last pass is done with s_w
+    fold_relations(s_w, cout, att, basis, r0, nr, cin, cout, nb);
+    // the first time, every CTA's accumulator must be zero before any
+    // warp of the cluster adds to it
+    if (r0 == 0) cluster.sync(); else __syncthreads();
+    const long long e_begin = s_range[0], e_end = s_range[1];
+    const int n_tiles = (int)((e_end - e_begin + kTile - 1) / kTile);
 
-  // Warps take 128-slot groups round-robin, so padding (masked slots, all
-  // at the tail of a chunk's range) costs every warp alike and is skipped
-  // by a ballot; inside a group, slots go in ascending (dst-sorted) order.
-  for (long long g = e_begin + (long long)warp * kGroup; g < e_end;
-       g += (long long)kWarps * kGroup) {
-    for (int sub = 0; sub < kGroup / 32; ++sub) {
-      const long long e = g + sub * 32 + lane;
-      const bool valid = e < e_end;
-      const float my_m = valid ? mask[e] : 0.f;
-      if (__ballot_sync(kFull, my_m != 0.f) == 0u) continue;   // all padding
-      const int my_src = valid ? src[e] : 0;
-      const int my_dst = valid ? dstl[e] : 0;
-      const int my_t = valid ? etype[e] : 0;
+    float u = 0.f;        // lane i: sum of mask * x[src][i] over the open run
+    float carry = 0.f;    // lane o: the open row's sum of run products
+    int cur_d = -1, cur_t = -1;   // the open run's row and relation
 
-      for (int j0 = 0; j0 < 32; j0 += kQuad) {
-        float m[kQuad], h[kQuad][NB];
-        int s[kQuad], d[kQuad], t[kQuad];
-#pragma unroll
-        for (int k = 0; k < kQuad; ++k) {
-          m[k] = __shfl_sync(kFull, my_m, j0 + k);
-          s[k] = __shfl_sync(kFull, my_src, j0 + k);
-          d[k] = __shfl_sync(kFull, my_dst, j0 + k);
-          t[k] = __shfl_sync(kFull, my_t, j0 + k);
-#pragma unroll
-          for (int b = 0; b < NB; ++b) h[k][b] = 0.f;
+    // the open run's product with W_r, into the row carry
+    auto flush_run = [&]() {
+      if (cur_t >= 0) {
+        const float* w = s_w + (cur_t - r0) * cin * cout + o;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        int i = 0;
+        for (; i + 4 <= cin; i += 4) {
+          a0 = fmaf(__shfl_sync(kFull, u, i), w[i * cout], a0);
+          a1 = fmaf(__shfl_sync(kFull, u, i + 1), w[(i + 1) * cout], a1);
+          a2 = fmaf(__shfl_sync(kFull, u, i + 2), w[(i + 2) * cout], a2);
+          a3 = fmaf(__shfl_sync(kFull, u, i + 3), w[(i + 3) * cout], a3);
         }
-        if (m[0] == 0.f && m[1] == 0.f && m[2] == 0.f && m[3] == 0.f) continue;
-        // h[k][b] = sum_i x[s_k, i] * basis[b, i, o]
-        for (int i0 = 0; i0 < cin; i0 += 32) {
-          float xv[kQuad];
+        for (; i < cin; ++i) a0 = fmaf(__shfl_sync(kFull, u, i), w[i * cout], a0);
+        carry += (a0 + a1) + (a2 + a3);
+      }
+      u = 0.f;
+    };
+    // the open row's carry into the accumulator of the CTA that owns it
+    auto flush_row = [&]() {
+      if (cur_d >= 0 && lane < cout) {
+        float* acc = cluster.map_shared_rank(s_acc, cur_d / rpc);
+        atomicAdd(acc + (cur_d % rpc) * cout + lane, carry);
+      }
+      carry = 0.f;
+    };
+
+    for (int tb = wid; tb < n_tiles; tb += kAhead * stride) {
+      // skip the tiles of this warp's next kAhead that hold no live slot
+      // (one 16-byte mask load per lane and tile)
+      unsigned live_tiles = 0;
 #pragma unroll
-          for (int k = 0; k < kQuad; ++k)
-            xv[k] = (i0 + lane < cin) ? __ldg(x + (long long)s[k] * cin + i0 + lane) : 0.f;
-          const int ni = min(32, cin - i0);
-          for (int ii = 0; ii < ni; ++ii) {
-            float bas[NB];
+      for (int q = 0; q < kAhead; ++q) {
+        const long long e = e_begin + (long long)(tb + q * stride) * kTile + 4 * lane;
+        float4 m4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e < e_end) m4 = __ldg(reinterpret_cast<const float4*>(mask + e));
+        const bool any = m4.x != 0.f || m4.y != 0.f || m4.z != 0.f || m4.w != 0.f;
+        live_tiles |= (unsigned)__any_sync(kFull, any) << q;
+      }
+#pragma unroll 1
+      for (int q = 0; q < kAhead; ++q) {
+        if (!((live_tiles >> q) & 1u)) continue;
+        // the tile's slots, one 32-slot group per register
+        const long long base = e_begin + (long long)(tb + q * stride) * kTile;
+        float tm[kTile / 32];
+        int ts[kTile / 32], td[kTile / 32], tt[kTile / 32];
 #pragma unroll
-            for (int b = 0; b < NB; ++b) bas[b] = s_basis[(b * cin + i0 + ii) * cout + o];
+        for (int k = 0; k < kTile / 32; ++k) {
+          const long long e = base + 32 * k + lane;
+          const bool valid = e < e_end;
+          tm[k] = valid ? __ldg(mask + e) : 0.f;
+          ts[k] = valid ? __ldg(src + e) : 0;
+          td[k] = valid ? __ldg(dstl + e) : 0;
+          tt[k] = valid ? __ldg(etype + e) : 0;
+        }
+        static_assert(kTile == 128, "the selects below take four groups");
+#pragma unroll 1
+        for (int k = 0; k < kTile / 32; ++k) {
+          const float m = k == 0 ? tm[0] : k == 1 ? tm[1] : k == 2 ? tm[2] : tm[3];
+          const int s = k == 0 ? ts[0] : k == 1 ? ts[1] : k == 2 ? ts[2] : ts[3];
+          const int d = k == 0 ? td[0] : k == 1 ? td[1] : k == 2 ? td[2] : td[3];
+          const int t = k == 0 ? tt[0] : k == 1 ? tt[1] : k == 2 ? tt[2] : tt[3];
+          const bool on = m != 0.f && (unsigned)(t - r0) < (unsigned)nr;
+          const unsigned live = __ballot_sync(kFull, on);
+          if (!live) continue;
+          // where runs and rows start: each live slot against the live slot
+          // before it (the first against the open run)
+          const unsigned below = live & ((1u << lane) - 1u);
+          const int pj = below ? 31 - __clz(below) : lane;
+          const int pd = __shfl_sync(kFull, d, pj), pt = __shfl_sync(kFull, t, pj);
+          const int prev_d = below ? pd : cur_d, prev_t = below ? pt : cur_t;
+          const unsigned row_start = __ballot_sync(kFull, on && d != prev_d);
+          const unsigned run_start = __ballot_sync(kFull, on && (d != prev_d || t != prev_t));
+          // gather mask * x[src] of the live slots in slot order: lane ->
+          // (slot rank b0 + lane / cw, channel lane % cw)
+          if (on) {
+            st_src[__popc(below)] = s;
+            st_m[__popc(below)] = m;
+          }
+          __syncwarp();
+          const int n_live = __popc(live);
+          const int c = lane & (cw - 1);
+          for (int b0 = lane >> cw_log; b0 < n_live; b0 += kLoads * spl) {
+            // kLoads loads in flight, all issued before the stores
+            float v[kLoads];
 #pragma unroll
-            for (int k = 0; k < kQuad; ++k) {
-              const float xi = __shfl_sync(kFull, xv[k], ii);
-#pragma unroll
-              for (int b = 0; b < NB; ++b) h[k][b] = fmaf(xi, bas[b], h[k][b]);
+            for (int k = 0; k < kLoads; ++k) {
+              const int b = b0 + k * spl;
+              v[k] = b < n_live && c < cin
+                         ? st_m[b] * __ldg(x + (long long)st_src[b] * cin + c) : 0.f;
             }
-          }
-        }
-        // msg_k = sum_b att[t_k, b] * h[k][b]; fold into the row carry in order
 #pragma unroll
-        for (int k = 0; k < kQuad; ++k) {
-          if (m[k] == 0.f) continue;   // warp-uniform: padding slot
-          float msg = 0.f;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) msg = fmaf(s_att[t[k] * NB + b], h[k][b], msg);
-          if (d[k] != cur_row) {
-            if (cur_row >= 0 && lane_out) atomicAdd(&s_acc[cur_row * cout + lane], carry);
-            cur_row = d[k];
-            carry = 0.f;
+            for (int k = 0; k < kLoads; ++k)
+              if (b0 + k * spl < 32) st_row[(b0 + k * spl) * 32 + c] = v[k];
           }
-          carry = fmaf(m[k], msg, carry);
+          __syncwarp();
+          // walk the runs: sum each run's rows, product at its end
+          unsigned pending = live;
+          int b = 0;
+          while (pending) {
+            const int j = __ffs(pending) - 1;
+            if ((run_start >> j) & 1u) {           // warp-uniform
+              flush_run();
+              if ((row_start >> j) & 1u) {
+                flush_row();
+                cur_d = __shfl_sync(kFull, d, j);
+              }
+              cur_t = __shfl_sync(kFull, t, j);
+            }
+            const unsigned later = run_start & pending & (pending - 1u);
+            const unsigned seg = later ? pending & ((later & (0u - later)) - 1u) : pending;
+            const int n = __popc(seg);
+            float a0 = 0.f, a1 = 0.f;
+            int i = 0;
+            for (; i + 2 <= n; i += 2) {
+              a0 += st_row[(b + i) * 32 + lane];
+              a1 += st_row[(b + i + 1) * 32 + lane];
+            }
+            if (i < n) a0 += st_row[(b + i) * 32 + lane];
+            u += a0 + a1;
+            b += n;
+            pending &= ~seg;
+          }
+          __syncwarp();   // the staging is rewritten by the next group
         }
       }
     }
+    flush_run();
+    flush_row();
   }
-  if (cur_row >= 0 && lane_out) atomicAdd(&s_acc[cur_row * cout + lane], carry);
-  __syncthreads();
+  cluster.sync();   // every row carry of the cluster has landed
 
-  float* out_chunk = out + (long long)chunk * rows * cout;
-  for (int i = tid; i < rows * cout; i += kThreads) out_chunk[i] = s_acc[i];
-}
-
-template <int NB>
-int launch(const float* x, const float* att, const float* basis, const int* src,
-           const int* dstl, const int* etype, const float* mask,
-           const int* chunk_of_block, float* out, int n_chunks, int cin,
-           int cout, int nrel, int rows, int nblk, int eblk, size_t smem,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rgcn_aggregate_fwd_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rgcn_aggregate_fwd_kernel<NB><<<n_chunks, kThreads, smem, stream>>>(
-      x, att, basis, src, dstl, etype, mask, chunk_of_block, out, cin, cout, nrel,
-      rows, nblk, eblk);
-  return (int)cudaGetLastError();
+  const int row_lo = rank * rpc, row_hi = min(rows, row_lo + rpc);
+  float* out_rows = out + ((long long)chunk * rows + row_lo) * cout;
+  for (int j = threadIdx.x; j < (row_hi - row_lo) * cout; j += kThreads) out_rows[j] = s_acc[j];
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` with one CTA per output chunk
-// (num_nodes / rows of them). Returns a cudaError_t as int: 0 on success.
-// The caller checks shapes, dtypes, contiguity, cout <= 32 and
-// 1 <= nb <= 8 (the number of bases is a template parameter).
+// Launches the kernel on `stream`: one cluster of kCluster CTAs per output
+// chunk (num_nodes / rows of them), relations in as few passes as the
+// card's shared memory allows. Returns a cudaError_t as int: 0 on success.
+// The caller checks shapes, dtypes, contiguity, cin <= 32, cout <= 32 and
+// 1 <= nb <= 8.
 extern "C" int rgcn_aggregate_fwd(const float* x, const float* att,
                                   const float* basis, const int* src,
                                   const int* dstl, const int* etype,
@@ -209,34 +293,32 @@ extern "C" int rgcn_aggregate_fwd(const float* x, const float* att,
                                   void* stream) {
   const int n_chunks = num_nodes / rows;
   if (n_chunks == 0) return 0;
-  const size_t smem =
-      sizeof(float) * ((size_t)nb * cin * cout + (size_t)nrel * nb + (size_t)rows * cout);
-  cudaStream_t st = (cudaStream_t)stream;
-#define IGMC_LAUNCH(NB_)                                                               \
-  case NB_:                                                                            \
-    return launch<NB_>(x, att, basis, src, dstl, etype, mask, chunk_of_block, out,     \
-                       n_chunks, cin, cout, nrel, rows, nblk, eblk, smem, st);
-  switch (nb) {
-    IGMC_LAUNCH(1)
-    IGMC_LAUNCH(2)
-    IGMC_LAUNCH(3)
-    IGMC_LAUNCH(4)
-    IGMC_LAUNCH(5)
-    IGMC_LAUNCH(6)
-    IGMC_LAUNCH(7)
-    IGMC_LAUNCH(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef IGMC_LAUNCH
-}
-
-extern "C" int rgcn_aggregate_fwd_max_smem(void) {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return bytes;
+  if (nrel < 1 || nb < 1 || nb > kMaxBases || cin > 32 || cout > 32)
+    return (int)cudaErrorInvalidValue;
+  // the masks are read 16 bytes at a time from the start of each block
+  if (eblk % 4 != 0 || (reinterpret_cast<uintptr_t>(mask) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t fixed =
+      sizeof(float) * ((size_t)kWarps * kStageWords + (size_t)((rows + kCluster - 1) / kCluster) * cout);
+  const size_t per_rel = sizeof(float) * (size_t)cin * cout;
+  const size_t room = (size_t)smem_max - 64;     // the static s_range
+  if (fixed + per_rel > room) return (int)cudaErrorInvalidValue;
+  const int fit = (int)((room - fixed) / per_rel);
+  const int passes = (nrel + fit - 1) / fit;
+  const int rel_per_pass = (nrel + passes - 1) / passes;
+  const size_t smem = fixed + rel_per_pass * per_rel;
+  err = cudaFuncSetAttribute(rgcn_aggregate_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  rgcn_aggregate_fwd_kernel<<<n_chunks * kCluster, kThreads, smem, (cudaStream_t)stream>>>(
+      x, att, basis, src, dstl, etype, mask, chunk_of_block, out, cin, cout, nb, nrel,
+      rows, nblk, eblk, rel_per_pass);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* rgcn_aggregate_fwd_error_string(int err) {

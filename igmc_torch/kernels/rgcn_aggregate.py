@@ -14,6 +14,11 @@ kernel in csrc/rgcn_aggregate_fwd.cu for CUDA tensors, and with
 src-sorted twin plan (block_align_edges_transposed): the CUDA kernel in
 csrc/rgcn_aggregate_bwd.cu for CUDA tensors (`rgcn_aggregate_bwd`), and
 `rgcn_aggregate_bwd_ref` for CPU tensors.
+
+Both kernels compute in the run form: the plans order each row's edges by
+relation, so the kernels sum the gathered rows of each (row, relation) run
+and take one product with W_r = att[r] @ basis per run, not one basis mix
+per edge (the kernels' headers say how).
 """
 
 from __future__ import annotations
@@ -64,7 +69,9 @@ def block_align_edges(
     [c*rows, (c+1)*rows)); blocks of one chunk are consecutive, every chunk
     owns at least one block, and `first_of_chunk[b]` marks the first.
     Extra blocks requested by `num_blocks` hold only padding and go to
-    chunk 0.
+    chunk 0. Real edges are sorted by (dst, etype), stably: the JAX plan
+    sorts by dst alone, so the two plans hold the same edges in the same
+    chunks, rows and slots, in another order within a dst row.
 
     `ukey` is the edge-dropout key stream (None unless `edge_canon` or
     `ukey_vals` is given): `edge_canon * 2 + (src < dst)` per real slot,
@@ -79,7 +86,11 @@ def block_align_edges(
     if len(real) and (edge_src[real].min() < 0 or edge_src[real].max() >= num_nodes
                       or edge_dst[real].min() < 0 or edge_dst[real].max() >= num_nodes):
         raise ValueError(f"edge endpoints outside [0, {num_nodes})")
-    order = real[np.argsort(edge_dst[real], kind="stable")]
+    # dst-sorted as the JAX plan, and by relation within each dst row, so
+    # that a (dst, relation) run is a stretch of consecutive slots (the
+    # kernels' run form); one stable sort of one int64 key
+    key = (edge_dst[real].astype(np.int64) << 32) | edge_type[real].astype(np.int64)
+    order = real[np.argsort(key, kind="stable")]
     dst_sorted = edge_dst[order]
     chunk_ids = dst_sorted // rows
 
@@ -138,7 +149,8 @@ def block_align_edges_transposed(
     num_blocks: Optional[int] = None,
     edge_canon: Optional[np.ndarray] = None,
 ):
-    """The src-sorted twin plan: block_align_edges with src and dst swapped.
+    """The src-sorted twin plan: block_align_edges with src and dst swapped
+    (so its edges are sorted by (src, etype)).
 
     The aggregate's gradient scatters to the SOURCE rows, so its kernel
     walks blocks aligned on src chunks. In the returned tuple element 0 is
@@ -208,10 +220,9 @@ def rgcn_aggregate_bwd_ref(g, x, att, basis, aligned_t, rows: int):
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-_MAX_COUT = 32     # K1: one lane per output channel
-_MAX_CIN_BWD = 32  # K2: one lane per input channel
-_MAX_BASES = 8     # both kernels are instantiated for 1..8 bases
-_N_ARGS = {"rgcn_aggregate_fwd": (9, 8), "rgcn_aggregate_bwd": (12, 9)}
+_MAX_WIDTH = 32    # both kernels: one lane per input and per output channel
+_MAX_BASES = 8     # both kernels fold W_r from 1..8 bases
+_N_ARGS = {"rgcn_aggregate_fwd": (9, 8), "rgcn_aggregate_bwd": (13, 9)}
 _libs = {}
 
 
@@ -228,8 +239,6 @@ def _kernel_lib(name: str):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = i
-        getattr(lib, f"{name}_max_smem").argtypes = []
-        getattr(lib, f"{name}_max_smem").restype = i
         getattr(lib, f"{name}_error_string").argtypes = [i]
         getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
         _libs[name] = lib
@@ -268,6 +277,10 @@ def _check_plan(what, plan, device, ep=None):
     if nblk == 0 or ep % nblk:
         raise ValueError(f"rgcn_aggregate: {ep} {what} edges do not split "
                          f"into {nblk} blocks")
+    # the kernels read the mask 16 bytes at a time from each block's start
+    if (ep // nblk) % 4 or (plan[3].device.type == "cuda" and plan[3].data_ptr() % 16):
+        raise ValueError(f"rgcn_aggregate: {what} blocks of {ep // nblk} slots "
+                         f"or its mask is not 16-byte aligned")
     for name, t in zip(names[:4], plan[:4]):
         if t.shape != (ep,):
             raise ValueError(f"rgcn_aggregate: {what} {name} shape "
@@ -289,9 +302,9 @@ def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes, aligned_t=None):
         raise ValueError(f"rgcn_aggregate: x {tuple(x.shape)} != ({num_nodes}, {cin})")
     if att.dim() != 2 or att.shape[1] != nb:
         raise ValueError(f"rgcn_aggregate: att {tuple(att.shape)} has not {nb} bases")
-    if cout > _MAX_COUT:
-        raise ValueError(f"rgcn_aggregate: the kernel takes Cout <= {_MAX_COUT}, "
-                         f"got {cout}")
+    if cin > _MAX_WIDTH or cout > _MAX_WIDTH:
+        raise ValueError(f"rgcn_aggregate: the kernels take Cin <= {_MAX_WIDTH} "
+                         f"and Cout <= {_MAX_WIDTH}, got {cin} and {cout}")
     if not 1 <= nb <= _MAX_BASES:
         raise ValueError(f"rgcn_aggregate: the kernel takes 1 to {_MAX_BASES} "
                          f"bases, got {nb}")
@@ -300,21 +313,14 @@ def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes, aligned_t=None):
     _check_plan("aligned", aligned, x.device)
     if _grad_wanted(x, att, basis):
         _require_twin_plan(aligned_t)
-        if cin > _MAX_CIN_BWD:
-            raise ValueError(f"rgcn_aggregate: the backward kernel takes Cin "
-                             f"<= {_MAX_CIN_BWD}, got {cin}")
         _check_plan("aligned_t", aligned_t, x.device, aligned[0].shape[0])
 
 
-def _launch(name, smem, ptrs, ints, device):
+def _launch(name, ptrs, ints, device):
     """Launch kernel `name` on the current stream of `device`; raises if
-    the shared memory it needs is over the card's per-block limit or the
-    launch fails."""
+    the launch fails (the kernel sizes its own shared memory)."""
     lib = _kernel_lib(name)
     with torch.cuda.device(device):
-        if smem > getattr(lib, f"{name}_max_smem")():
-            raise ValueError(f"{name}: needs {smem} B of shared memory, over "
-                             f"the card's per-block limit")
         err = getattr(lib, name)(*ptrs, *ints,
                                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -332,7 +338,6 @@ def _aggregate_fwd(x, att, basis, aligned, rows: int, num_nodes: int):
     nblk = chunk_of_block.shape[0]
     out = torch.empty(num_nodes, cout, dtype=torch.float32, device=x.device)
     _launch("rgcn_aggregate_fwd",
-            4 * (nb * cin * cout + att.shape[0] * nb + rows * cout),
             (x.data_ptr(), att.data_ptr(), basis.data_ptr(), src.data_ptr(),
              dstl.data_ptr(), etype.data_ptr(), mask.data_ptr(),
              chunk_of_block.data_ptr(), out.data_ptr()),
@@ -422,22 +427,18 @@ def rgcn_aggregate_bwd(g, x, att, basis, aligned_t, rows: int,
                          f"{tuple(g.shape)} on {g.device}")
     with torch.no_grad():
         _check_cuda_inputs(x, att, basis, aligned_t, rows, num_nodes)
-    if cin > _MAX_CIN_BWD:
-        raise ValueError(f"rgcn_aggregate_bwd: the kernel takes Cin <= "
-                         f"{_MAX_CIN_BWD}, got {cin}")
     gdst, srcl, etype, mask, chunk_of_block = aligned_t[:5]
     nrel, nblk = att.shape[0], chunk_of_block.shape[0]
     dx = torch.empty_like(x) if need_dx else None
-    datt = torch.zeros_like(att)
-    dbasis = torch.zeros_like(basis)
-    # basis^T, att, the [rows, Cin] dx accumulator, the dbasis partial and
-    # per-lane datt partials, as csrc/rgcn_aggregate_bwd.cu lays them out
-    smem = 4 * (2 * nb * cin * cout + nrel * nb + rows * cin + 32 * nrel * nb)
-    _launch("rgcn_aggregate_bwd", smem,
+    datt = torch.empty_like(att)
+    dbasis = torch.empty_like(basis)
+    # the kernel's global [R, Cin, Cout] dW sum and its CTA ticket, zeroed
+    work = torch.zeros(nrel * cin * cout + 1, dtype=torch.float32, device=g.device)
+    _launch("rgcn_aggregate_bwd",
             (g.data_ptr(), x.data_ptr(), att.data_ptr(), basis.data_ptr(),
              gdst.data_ptr(), srcl.data_ptr(), etype.data_ptr(), mask.data_ptr(),
              chunk_of_block.data_ptr(), dx.data_ptr() if need_dx else 0,
-             datt.data_ptr(), dbasis.data_ptr()),
+             datt.data_ptr(), dbasis.data_ptr(), work.data_ptr()),
             (num_nodes, cin, cout, nb, nrel, rows, nblk, gdst.shape[0] // nblk,
              int(need_dx)), g.device)
     rgcn_aggregate_bwd.launches += 1

@@ -25,6 +25,7 @@ from igmc_torch.kernels.rgcn_aggregate import (
     rgcn_aggregate, rgcn_aggregate_bwd, rgcn_aggregate_bwd_ref,
 )
 from igmc_torch.ops import feature_dropout, hash_edge_keep
+from torch_plan_checks import assert_plan_matches_jax
 
 torch.set_num_threads(1)
 
@@ -49,7 +50,9 @@ CASES = [("random", 0), ("hot_src", 0), ("random", 3), ("hot_src", 5)]
 @pytest.mark.parametrize("case,extra", CASES)
 @pytest.mark.parametrize("transposed", [False, True])
 def test_plans_with_ukey_match_jax(case, extra, transposed):
-    """Both plans with the ukey stream equal JAX's array for array."""
+    """Both plans with the ukey stream against JAX's: the same geometry,
+    the same edges per chunk each with its ukey, and the (dst, etype) or,
+    for the twin, (src, etype) order within a row."""
     N, eblk, rows = 64, 64, 16
     src, dst, etyp, mask, canon = make_edges(case, N)
     jfn = jax_block_align_edges_transposed if transposed else jax_block_align_edges
@@ -60,9 +63,7 @@ def test_plans_with_ukey_match_jax(case, extra, transposed):
     got = pfn(src, dst, etyp, mask, N, eblk=eblk, rows=rows,
               num_blocks=need + extra, edge_canon=canon)
     assert len(got) == 8 and got[6] == want[6] == need + extra
-    for g, w in zip(got[:6] + got[7:], want[:6] + want[7:]):
-        assert g.dtype == w.dtype
-        np.testing.assert_array_equal(g, w)
+    assert_plan_matches_jax(got[:6] + got[7:], want[:6] + want[7:])
     if transposed and case == "hot_src":
         assert (got[4] == 0).sum() >= 4     # node 0's chunk spans blocks
     # the twin plan keys the ORIGINAL orientation: same keys, other order
@@ -230,8 +231,8 @@ def test_gradient_without_twin_plan_raises():
 
 
 def test_cuda_checks_refuse_wide_input_for_the_backward():
-    """K2 takes Cin <= 32 (one lane per input channel): a gradient wanted
-    at Cin 40 raises before any launch."""
+    """The kernels take Cin <= 32 (one lane per input channel): a gradient
+    wanted at Cin 40 raises before any launch."""
     N, R, B, Cin, Cout, rows = 64, 5, 4, 40, 16, 16
     _, af, at = _plans("random", 0, N, R, rows, 64, seed=4)
     x, att, basis, _ = _operands(N, R, B, Cin, Cout, seed=4)

@@ -148,3 +148,69 @@ def test_cuda_autograd_matches_cpu():
     for name, gc, gg in zip(("dx", "datt", "dbasis"), grads["cpu"], grads["cuda"]):
         torch.testing.assert_close(gg, gc, rtol=1e-5,
                                    atol=1e-4 * float(gc.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [4, 32])
+def test_cuda_kernels_many_relations(cin):
+    """K1 and K2 at R = 71 (yahoo_music's rating levels; at Cin 32 W_r for
+    every relation does not fit a block's shared memory, so both kernels
+    take the relations in groups) against the float64 plain versions:
+    K1 rtol 1e-5 / atol 1e-4, K2 within 1e-5 of each entry's sum of |terms|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, E, R, B, Cout, rows, eblk = 512, 6000, 71, 4, 32, 256, 1024
+    (src, dst, etyp, mask), (x, att, basis) = make_case(
+        "hot_row", N, E, R, B, cin, Cout, seed=10)
+    dev = torch.device("cuda")
+    ops = [torch.from_numpy(a).to(dev) for a in (x, att, basis)]
+    plan = tuple(torch.from_numpy(a).to(dev) for a in block_align_edges(
+        src, dst, etyp, mask, N, eblk=eblk, rows=rows, num_blocks=16)[:6])
+    with torch.no_grad():
+        got = rgcn_aggregate(*ops, plan, rows, N)
+    want = rgcn_aggregate_ref(*(a.double() for a in ops), plan, rows, N).float()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+    plan_t = tuple(torch.from_numpy(a).to(dev) for a in block_align_edges_transposed(
+        src, dst, etyp, mask, N, eblk=eblk, rows=rows, num_blocks=16)[:6])
+    g = torch.from_numpy(np.random.default_rng(11).uniform(
+        -1, 1, (N, Cout)).astype(np.float32)).to(dev)
+    args = [g] + ops
+    want = rgcn_aggregate_bwd_ref(*(a.double() for a in args), plan_t, rows)
+    terms = rgcn_aggregate_bwd_ref(*(a.double().abs() for a in args), plan_t, rows)
+    got = rgcn_aggregate_bwd(*args, plan_t, rows)
+    torch.cuda.synchronize()
+    for name, gv, wv, tv in zip(("dx", "datt", "dbasis"), got, want, terms):
+        assert_close_to_terms(gv, wv, tv, name)
+
+
+@pytest.mark.cuda
+def test_cuda_layer1_backward_without_dx():
+    """Layer 1 as the model calls it: a one-hot Cin 4 input that wants no
+    gradient, through rgcn_aggregate's autograd on the card. K2 runs once,
+    with need_dx false, and datt and dbasis match the CPU's plain versions
+    (rtol 1e-5, atol 1e-4 of the largest entry: summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, E, R, B, cin, Cout, rows, eblk = 512, 6000, 5, 4, 4, 32, 256, 1024
+    (src, dst, etyp, mask), (_, att, basis) = make_case(
+        "random", N, E, R, B, cin, Cout, seed=12)
+    x = np.eye(cin, dtype=np.float32)[np.random.default_rng(12).integers(0, cin, N)]
+    af = block_align_edges(src, dst, etyp, mask, N, eblk=eblk, rows=rows)[:6]
+    at = block_align_edges_transposed(src, dst, etyp, mask, N, eblk=eblk,
+                                      rows=rows)[:6]
+    w = np.random.default_rng(13).uniform(-1, 1, (N, Cout)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xt = torch.from_numpy(x).to(dev)
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in (att, basis)]
+        before = rgcn_aggregate_bwd.launches
+        out = rgcn_aggregate(xt, *ts, tuple(torch.from_numpy(a).to(dev) for a in af),
+                             rows, N, tuple(torch.from_numpy(a).to(dev) for a in at))
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        assert rgcn_aggregate_bwd.launches == before + (dev == "cuda")
+        assert xt.grad is None
+        grads[dev] = [t.grad.cpu() for t in ts]
+    for name, gc, gg in zip(("datt", "dbasis"), grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(gg, gc, rtol=1e-5,
+                                   atol=1e-4 * float(gc.abs().max()), msg=name)

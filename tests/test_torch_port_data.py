@@ -1,7 +1,9 @@
 """igmc_torch data path against the JAX package on a small ML-1M-format
 fixture: the split, every extracted subgraph (NumPy engine on both sides,
 with and without a binding per-hop cap), and the collated flat batches with
-their aligned edge plans. All comparisons are exact."""
+their aligned edge plans. All comparisons are exact; the plans are held to
+JAX's by tests/torch_plan_checks.py (the port orders each row's edges by
+relation)."""
 
 import dataclasses
 
@@ -21,6 +23,7 @@ from igmc_torch.batching import dataset as port_dataset
 from igmc_torch.data import create_trainvaltest_split, load_data
 from igmc_torch.data.loaders import _cf_nade_shuffle, map_data
 from igmc_torch.graphs import BipartiteCSR, extract_many
+from torch_plan_checks import assert_plan_matches_jax
 
 torch.set_num_threads(1)
 
@@ -163,9 +166,8 @@ def test_batches_match_jax_pallas_loader(splits, monkeypatch, mnph, rows, eblk):
             assert gv.numpy().dtype == wv.dtype, f
         # (src, dst_local, etype, mask, chunk_of_block, first_of_chunk, ukey)
         assert len(g.aligned) == len(w.aligned) == 7
-        for ga, wa in zip(g.aligned, w.aligned):
-            np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
-            assert ga.numpy().dtype == np.asarray(wa).dtype
+        assert_plan_matches_jax(tuple(a.numpy() for a in g.aligned),
+                                tuple(np.asarray(a) for a in w.aligned))
         # an evaluation loader builds no twin plan (JAX's builds one anyway)
         assert g.aligned_t is None
         assert g.num_nodes % rows == 0
@@ -198,10 +200,8 @@ def test_training_batches_match_jax_shuffled_loader(splits, seed):
             for plan in ("aligned", "aligned_t"):
                 gp, wp = getattr(g, plan), getattr(w, plan)
                 assert len(gp) == len(wp) == 7, plan
-                for ga, wa in zip(gp, wp):
-                    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa),
-                                                  err_msg=plan)
-                    assert ga.numpy().dtype == np.asarray(wa).dtype, plan
+                assert_plan_matches_jax(tuple(a.numpy() for a in gp),
+                                        tuple(np.asarray(a) for a in wp))
 
 
 def test_graph_batch_to_moves_every_tensor(splits):

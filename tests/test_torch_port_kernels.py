@@ -19,6 +19,7 @@ from igmc_torch.kernels.rgcn_aggregate import (
     _check_cuda_inputs, block_align_edges, plan_capacity_blocks,
     rgcn_aggregate, rgcn_aggregate_ref,
 )
+from torch_plan_checks import assert_plan_matches_jax
 
 torch.set_num_threads(1)
 
@@ -47,7 +48,10 @@ ALIGN_CASES = [
 
 @pytest.mark.parametrize("case,extra", ALIGN_CASES)
 def test_block_align_edges_matches_jax(case, extra):
-    """Exact equality, array for array (integers and 0/1 masks)."""
+    """JAX's plan geometry exactly (dst_local, mask, chunk_of_block,
+    first_of_chunk, n_blocks), the same (dst, etype, src) edges per chunk,
+    and etype nondecreasing within each dst row (the port's (dst, etype)
+    order; JAX's is dst only)."""
     N, eblk, rows = 64, 64, 16
     src, dst, etyp, mask = make_edges(case, N)
     need = jax_block_align_edges(src, dst, etyp, mask, N, eblk=eblk,
@@ -58,9 +62,7 @@ def test_block_align_edges_matches_jax(case, extra):
                             num_blocks=need + extra)
     assert len(got) == len(want) == 8
     assert got[7] is None and want[7] is None   # no pair ids, no ukey
-    for g, w in zip(got[:6], want[:6]):
-        assert g.dtype == w.dtype
-        np.testing.assert_array_equal(g, w)
+    assert_plan_matches_jax(got[:6] + got[7:], want[:6] + want[7:])
     assert got[6] == want[6] == need + extra
     if case == "hot_row":
         assert (got[4] == 0).sum() >= 4     # node 0's chunk spans blocks
@@ -159,7 +161,8 @@ def _cpu_case(Cin=8, Cout=16):
     ("float64 x", TypeError), ("int64 src", TypeError),
     ("cout 64", ValueError), ("9 bases", ValueError), ("x rows", ValueError),
     ("strided x", ValueError), ("mask length", ValueError),
-    ("requires grad", RuntimeError),
+    ("requires grad", RuntimeError), ("cin 64", ValueError),
+    ("blocks of 6", ValueError),
 ])
 def test_kernel_input_checks(what, error):
     """What the CUDA kernel does not take raises before any launch (the
@@ -183,6 +186,11 @@ def test_kernel_input_checks(what, error):
         aligned = aligned[:3] + (aligned[3][:-1],) + aligned[4:]
     elif what == "requires grad":
         basis = basis.clone().requires_grad_(True)
+    elif what == "cin 64":
+        x = torch.zeros(64, 64)
+        basis = torch.zeros(4, 64, 16)
+    elif what == "blocks of 6":   # the kernels read masks 4 slots at a time
+        aligned = tuple(a[:60] for a in aligned[:4]) + (aligned[4][:10],) + aligned[5:]
     with pytest.raises(error):
         _check_cuda_inputs(x, att, basis, aligned, rows, N)
 

@@ -6,6 +6,7 @@ package."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -98,7 +99,8 @@ def test_resolving_a_device_turns_tf32_off(monkeypatch):
     assert not port_device.tf32_enabled()
 
 
-def test_kernel_sources_are_packaged_and_build_paths_are_content_hashed():
+def test_kernel_sources_are_packaged_and_build_paths_are_content_hashed(
+        tmp_path, monkeypatch):
     from igmc_torch.kernels import build
 
     assert build.KERNELS == ("rgcn_aggregate_fwd", "rgcn_aggregate_bwd")
@@ -118,6 +120,14 @@ def test_kernel_sources_are_packaged_and_build_paths_are_content_hashed():
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     pyproject = open(os.path.join(REPO, "pyproject.toml")).read()
     assert '"igmc_torch*"' in pyproject and '"csrc/*.cu"' in pyproject
+    assert '"csrc/*.cuh"' in pyproject
+    # an edited shared header rebuilds every kernel
+    shutil.copytree(build.CSRC_DIR, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path / "csrc"))
+    assert {build.library_path(n) for n in build.KERNELS} == paths   # same content
+    with open(tmp_path / "csrc" / "rgcn_aggregate_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert not paths & {build.library_path(n) for n in build.KERNELS}
 
 
 def test_chip_smoke_fails_without_a_card():
