@@ -18,11 +18,11 @@ non-zero:
      float64) on the card at the main path's shapes (one real ML-1M batch
      at Cin 4 and 32, a hot row spanning several blocks, a plan with 64
      extra padding blocks, and test batch 0's edges with their relations
-     redrawn over R = 71 and planned anew), with the kernel's device time
-     per launch (profiler), its time on the edges of the batch's heaviest
-     chunk alone (one cluster's work), the CUDA-event time of the wrapper
-     call, the plain version's time in float32 and the least time the card
-     could take, beside PR 2's recorded kernel times: K1 (forward) rtol 1e-5 /
+     redrawn over R = 71 and planned anew), with the time per call of the
+     wrapper (CUDA events, the measure of the kernels' earlier recorded
+     times, printed beside it), the kernel's device time per launch
+     (profiler), the plain version's time in float32 and the least time
+     the card could take: K1 (forward) rtol 1e-5 /
      atol 1e-4; K2 (backward: dx, datt, dbasis) within 1e-5 of each entry's
      sum of absolute terms;
   5. evaluation path: a two-checkpoint ensemble of full-width IGMC (random
@@ -74,10 +74,11 @@ RTOL, ATOL = 1e-5, 1e-4          # K1 vs plain version: summation order
 TERMS_RTOL = 1e-5                # K2 vs plain version, per sum of |terms|
 PRED_ATOL = 1e-4                 # card vs CPU predictions
 MANY_RELATIONS = 71              # yahoo_music's rating levels
-# the kernels' times per launch before their redesign (chip_smoke, PR 2,
-# NVIDIA H100 80GB HBM3, 700.00 W), by Cin
-PR2_MS = {"rgcn_aggregate_fwd": {32: 0.3923, 4: 0.1159},
-          "rgcn_aggregate_bwd": {32: 0.5793, 4: 0.4720}}
+# the kernels' times per wrapper call before their redesign for the run
+# form, CUDA events (this script, NVIDIA H100 80GB HBM3, 700.00 W), by Cin:
+# printed beside this run's times, never reported as this run's
+BEFORE_MS = {"rgcn_aggregate_fwd": {32: 0.3923, 4: 0.1159},
+             "rgcn_aggregate_bwd": {32: 0.5793, 4: 0.4720}}
 GRAD_TOL = 1e-4                  # card vs CPU training step
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
 BATCH_SIZE = 50                  # the CLI's default batch
@@ -284,49 +285,18 @@ def hot_plans(b, b_test, R, hot_side: str, transposed: bool):
 
 
 def _summary(name, results):
-    """One line per kernel: its device time per launch at Cin 4 and 32, its
-    bound and share of the bound, and PR 2's time beside it."""
+    """One line per kernel: its time per call at Cin 4 and 32 (CUDA events),
+    its bound and share of the bound, the recorded time before the
+    redesign on the same measure beside it, and the device time per launch
+    (profiler)."""
     parts = []
     for cin in (4, 32):
-        r, before = results[cin], PR2_MS[name][cin]
+        r, before = results[cin], BEFORE_MS[name][cin]
         parts.append(f"cin={cin} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
-                     f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; PR 2 "
+                     f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; before the redesign "
                      f"{before:.4f} ms, {before / r['ms']:.2f}x faster now; "
-                     f"heaviest chunk alone {r['heavy_chunk_ms']:.4f} ms)")
-    print(f"[kernel] {name} per launch: " + "; ".join(parts), flush=True)
-
-
-def heaviest_chunk_plan(b, transposed: bool):
-    """The plan of a batch's edges restricted to the chunk (of scatter rows)
-    that holds the most edges, at the batch's plan capacity: the work of
-    the kernel's slowest cluster alone. Returns (plan, chunk, its edges)."""
-    from igmc_torch.kernels.rgcn_aggregate import (
-        block_align_edges, block_align_edges_transposed)
-
-    src, dst = b.edge_src.numpy(), b.edge_dst.numpy()
-    typ, msk = b.edge_type.numpy(), b.edge_mask.numpy()
-    scatter = src if transposed else dst
-    per_chunk = np.bincount(scatter[msk] // ROWS, minlength=b.num_nodes // ROWS)
-    heavy = int(per_chunk.argmax())
-    align = block_align_edges_transposed if transposed else block_align_edges
-    plan = align(src, dst, typ, msk & (scatter // ROWS == heavy), b.num_nodes,
-                 num_blocks=b.aligned[4].numel())[:6]
-    return plan, heavy, int(per_chunk[heavy])
-
-
-def time_heaviest_chunk(name, call, b, transposed, cin, dev):
-    """The kernel's device ms per launch of `call(plan)` on the plan of
-    heaviest_chunk_plan: its slowest cluster's work alone."""
-    import torch
-
-    plan, heavy, n = heaviest_chunk_plan(b, transposed)
-    plan = tuple(torch.as_tensor(a).to(dev) for a in plan)
-    with torch.no_grad():
-        ms = kernel_ms(lambda: call(plan), name, 50)
-    print(f"[kernel] {name} cin={cin} on the edges of its heaviest chunk alone (chunk "
-          f"{heavy}, {n} edges, one cluster of {b.num_nodes // ROWS}): "
-          f"{ms:.4f} ms", flush=True)
-    return ms
+                     f"device time {r['device_ms']:.4f} ms)")
+    print(f"[kernel] {name} per call: " + "; ".join(parts), flush=True)
 
 
 def check_k1(b0, R, B, COUT, dev, gen):
@@ -366,19 +336,14 @@ def check_k1(b0, R, B, COUT, dev, gen):
             if plan_name == "ml1m_batch0":
                 with torch.no_grad():
                     call = lambda: rgcn_aggregate(x, att, basis, aligned, ROWS, N)
-                    ms = kernel_ms(call, "rgcn_aggregate_fwd", 50)
-                    call_ms = cuda_ms(call, 50)
+                    ms = cuda_ms(call, 50)
+                    device_ms = kernel_ms(call, "rgcn_aggregate_fwd", 50)
                     plain_ms = cuda_ms(lambda: rgcn_aggregate_ref(x, att, basis, aligned, ROWS, N), 20)
                 bnd = aggregate_bound(x, att, basis, aligned)
-                heavy_ms = time_heaviest_chunk(
-                    "rgcn_aggregate_fwd",
-                    lambda p: rgcn_aggregate(x, att, basis, p, ROWS, N), b0, False,
-                    cin, dev)
-                results[cin] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                                    heavy_chunk_ms=heavy_ms,
+                results[cin] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                                     ep=int(aligned[0].numel()), **bnd)
-                line += (f"; kernel {ms:.4f} ms on the card (wrapper call "
-                         f"{call_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} ms, "
+                line += (f"; {ms:.4f} ms per call (CUDA events; kernel alone "
+                         f"{device_ms:.4f} ms, profiler), plain {plain_ms:.4f} ms, "
                          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
                          f"{bnd['flops']:.3e} FLOP, {bnd['nbytes']:.3e} B; "
                          f"{bnd['e_real']} real of {aligned[0].numel()} edge "
@@ -439,21 +404,17 @@ def check_k2(bt, b0, R, B, COUT, dev, gen):
                 with torch.no_grad():
                     call = lambda: rgcn_aggregate_bwd(g, x, att, basis, plan, ROWS,
                                                       need_dx=need_dx)
-                    ms = kernel_ms(call, "rgcn_aggregate_bwd", 50)
-                    call_ms = cuda_ms(call, 50)
+                    ms = cuda_ms(call, 50)
+                    device_ms = kernel_ms(call, "rgcn_aggregate_bwd", 50)
                     plain_ms = cuda_ms(lambda: rgcn_aggregate_bwd_ref(
                         g, x, att, basis, plan, ROWS), 20)
                 bnd = aggregate_bwd_bound(x, att, basis, plan, need_dx)
-                heavy_ms = time_heaviest_chunk(
-                    "rgcn_aggregate_bwd",
-                    lambda p: rgcn_aggregate_bwd(g, x, att, basis, p, ROWS,
-                                                 need_dx=need_dx), bt, True, cin, dev)
-                results[cin] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                                    heavy_chunk_ms=heavy_ms, need_dx=need_dx,
-                                    ep=int(plan[0].numel()), **bnd)
-                line += (f"; kernel {ms:.4f} ms on the card (dx "
-                         f"{'on' if need_dx else 'off'}, as the main path; wrapper "
-                         f"call {call_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} "
+                results[cin] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                    need_dx=need_dx, ep=int(plan[0].numel()), **bnd)
+                line += (f"; {ms:.4f} ms per call (dx "
+                         f"{'on' if need_dx else 'off'}, as the main path; CUDA "
+                         f"events; kernel alone {device_ms:.4f} ms, profiler), "
+                         f"plain {plain_ms:.4f} "
                          f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
                          f"{bnd['flops']:.3e} FLOP, {bnd['nbytes']:.3e} B; "
                          f"{bnd['e_real']} real of {plan[0].numel()} edge slots, "
@@ -827,13 +788,9 @@ def main() -> None:
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": err, "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
-            "library_ms": None, "call_ms": r32["call_ms"],
-            "heavy_chunk_ms": r32["heavy_chunk_ms"],
-            "share_of_bound": r32["bound_ms"] / r32["ms"], "pr2_ms": PR2_MS[name][32],
-            "cin4": {k: res[4][k] for k in ("ms", "call_ms", "heavy_chunk_ms", "plain_ms",
-                                            "bound_ms", "bound_by")}
-                    | {"pr2_ms": PR2_MS[name][4]},
-            "tpu_form_ms": {"cin32": r32["form_ms"], "cin4": res[4]["form_ms"]},
+            "library_ms": None, "device_ms": r32["device_ms"],
+            "cin4": {k: res[4][k] for k in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")},
             "shape": (f"ML-1M batch 0: N {batches[0].num_nodes}, {r32['e_real']} "
                       f"real of {r32['ep']} edge slots, Cin 32, Cout {COUT}, "
                       f"B {B}, R {R}"),

@@ -36,7 +36,8 @@
 //     2 per SM. The cluster's 32 warps take the chunk's 128-slot tiles round
 //     robin and skip the tiles with no live slot (one 16-byte mask load per
 //     lane and tile, 8 tiles at once). A live tile is walked as four 32-slot
-//     groups: ballots find the live slots and the run starts, the rows
+//     groups (walk_runs in rgcn_aggregate_common.cuh, shared with the
+//     forward kernel): ballots find the live slots and the run starts, the rows
 //     mask * g[dst] are gathered into the warp's staging (16 loads in
 //     flight), and each (src, relation) run's rows are summed into u, lanes
 //     on the Cout <= 32 channels.
@@ -64,8 +65,6 @@
 //   * The epilogue: the last CTA to finish (a ticket counter after a
 //     __threadfence, the zeroed word after the global dW sum) folds dW into
 //     datt and dbasis, which it writes whole (torch.empty in the wrapper).
-//     The TPU's per-slot dae [B, Ep] array and the per-edge products are
-//     gone.
 //   * W_r is folded in the prologue into shared memory with a row stride of
 //     Cout + 1, so that the dx product (lane i reads W_r[i, o]) is free of
 //     bank conflicts; 109 KB per CTA in all at R 5, Cin 32, with dx. Where
@@ -91,13 +90,10 @@ namespace {
 constexpr int kCluster = 4;      // CTAs per source-row chunk
 constexpr int kWarps = 8;        // warps per CTA
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 128;       // plan slots a warp takes at a time
-constexpr int kAhead = 8;        // tiles whose masks a warp checks at once
-constexpr int kLoads = 16;       // rows a warp gathers at once
 constexpr int kRunBuf = 12;      // finished runs a warp buffers before their products
-// per-warp staging in shared memory: of one 32-slot group the live slots'
-// dst and mask and gathered rows, and the buffered runs' sums and x rows
-constexpr int kStageWords = 2 * 32 + 32 * 32 + 2 * kRunBuf * 32;
+// per-warp staging in shared memory: walk_runs' staging, then the buffered
+// runs' sums and x rows
+constexpr int kStageWords = kWalkWords + 2 * kRunBuf * 32;
 
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
 rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
@@ -122,11 +118,9 @@ rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
   const int io_n = cin * cout;
   const int ldw = cout + 1;
   const int warp = threadIdx.x >> 5;
-  int* st_idx = reinterpret_cast<int*>(smem) + warp * kStageWords;  // [32]
-  float* st_m = reinterpret_cast<float*>(st_idx + 32);              // [32]
-  float* st_row = st_m + 32;                                        // [32][32]
-  float* st_u = st_row + 32 * 32;                                   // [kRunBuf][32]
-  float* st_x = st_u + kRunBuf * 32;                                // [kRunBuf][32]
+  float* stage = smem + warp * kStageWords;            // walk_runs' staging
+  float* st_u = stage + kWalkWords;                    // [kRunBuf][32]
+  float* st_x = st_u + kRunBuf * 32;                   // [kRunBuf][32]
   float* s_dx = smem + kWarps * kStageWords;           // [rpc, cin] if want_dx
   float* s_dw = s_dx + (want_dx ? rpc * cin : 0);      // [rel_per_pass, cin, cout]
   float* s_w = s_dw + rel_per_pass * io_n;             // [rel_per_pass, cin, ldw] if want_dx
@@ -140,10 +134,6 @@ rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
   const int wid = rank * kWarps + warp;                // warp index in the cluster
   const int stride = kCluster * kWarps;
   const int ii = lane < cin ? lane : 0;                // lanes past cin compute on 0
-  // a gathered row fills cw lanes (cout rounded up to a power of two), so
-  // one load instruction gathers spl = 32 / cw rows
-  const int cw_log = cout > 1 ? 32 - __clz(cout - 1) : 0;
-  const int cw = 1 << cw_log, spl = 32 >> cw_log;
   const long long row0 = (long long)chunk * rows;
 
   chunk_range(chunk_of_block, nblk, chunk, eblk, s_range);
@@ -157,11 +147,7 @@ rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
     // the first time, every CTA's dx accumulator must be zero before any
     // warp of the cluster adds to it
     if (r0 == 0) cluster.sync(); else __syncthreads();
-    const long long e_begin = s_range[0], e_end = s_range[1];
-    const int n_tiles = (int)((e_end - e_begin + kTile - 1) / kTile);
 
-    float u = 0.f;     // lane o: sum of mask * g[dst][o] over the open run
-    int cur_s = -1, cur_t = -1;   // the open run's source row and relation
     int n_buf = 0;     // finished runs in the warp's buffer
     int buf_s = 0, buf_t = 0;     // lane k: source row and relation of buffered run k
     float dxc = 0.f;   // lane i: the open dx row's sum of u @ W_r^T
@@ -239,117 +225,18 @@ rgcn_aggregate_bwd_kernel(const float* __restrict__ g,
       n_buf = 0;
       __syncwarp();
     };
-    // the open run into the buffer
-    auto push_run = [&]() {
-      if (cur_t >= 0) {
-        if (n_buf == kRunBuf) flush_buffer();
-        st_u[n_buf * 32 + lane] = u;
-        if (lane == n_buf) {
-          buf_s = cur_s;
-          buf_t = cur_t;
-        }
-        ++n_buf;
+    // each finished (src, relation) run into the buffer (lane o of u holds
+    // the run's sum of mask * g[dst][o])
+    walk_runs(g, cout, gdst, srcl, etype, mask, s_range[0], s_range[1], wid, stride,
+              r0, nr, stage, [&](int row, int t, float u) {
+      if (n_buf == kRunBuf) flush_buffer();
+      st_u[n_buf * 32 + lane] = u;
+      if (lane == n_buf) {
+        buf_s = row;
+        buf_t = t;
       }
-      u = 0.f;
-    };
-
-    for (int tb = wid; tb < n_tiles; tb += kAhead * stride) {
-      // skip the tiles of this warp's next kAhead that hold no live slot
-      // (one 16-byte mask load per lane and tile)
-      unsigned live_tiles = 0;
-#pragma unroll
-      for (int q = 0; q < kAhead; ++q) {
-        const long long e = e_begin + (long long)(tb + q * stride) * kTile + 4 * lane;
-        float4 m4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (e < e_end) m4 = __ldg(reinterpret_cast<const float4*>(mask + e));
-        const bool any = m4.x != 0.f || m4.y != 0.f || m4.z != 0.f || m4.w != 0.f;
-        live_tiles |= (unsigned)__any_sync(kFull, any) << q;
-      }
-#pragma unroll 1
-      for (int q = 0; q < kAhead; ++q) {
-        if (!((live_tiles >> q) & 1u)) continue;
-        // the tile's slots, one 32-slot group per register
-        const long long base = e_begin + (long long)(tb + q * stride) * kTile;
-        float tm[kTile / 32];
-        int ts[kTile / 32], td[kTile / 32], tt[kTile / 32];
-#pragma unroll
-        for (int k = 0; k < kTile / 32; ++k) {
-          const long long e = base + 32 * k + lane;
-          const bool valid = e < e_end;
-          tm[k] = valid ? __ldg(mask + e) : 0.f;
-          ts[k] = valid ? __ldg(srcl + e) : 0;
-          td[k] = valid ? __ldg(gdst + e) : 0;
-          tt[k] = valid ? __ldg(etype + e) : 0;
-        }
-        static_assert(kTile == 128, "the selects below take four groups");
-#pragma unroll 1
-        for (int k = 0; k < kTile / 32; ++k) {
-          const float m = k == 0 ? tm[0] : k == 1 ? tm[1] : k == 2 ? tm[2] : tm[3];
-          const int s = k == 0 ? ts[0] : k == 1 ? ts[1] : k == 2 ? ts[2] : ts[3];
-          const int d = k == 0 ? td[0] : k == 1 ? td[1] : k == 2 ? td[2] : td[3];
-          const int t = k == 0 ? tt[0] : k == 1 ? tt[1] : k == 2 ? tt[2] : tt[3];
-          const bool on = m != 0.f && (unsigned)(t - r0) < (unsigned)nr;
-          const unsigned live = __ballot_sync(kFull, on);
-          if (!live) continue;
-          // where runs start: each live slot against the live slot before it
-          // (the first against the open run)
-          const unsigned below = live & ((1u << lane) - 1u);
-          const int pj = below ? 31 - __clz(below) : lane;
-          const int ps = __shfl_sync(kFull, s, pj), pt = __shfl_sync(kFull, t, pj);
-          const int prev_s = below ? ps : cur_s, prev_t = below ? pt : cur_t;
-          const unsigned run_start = __ballot_sync(kFull, on && (s != prev_s || t != prev_t));
-          // gather mask * g[dst] of the live slots in slot order: lane ->
-          // (slot rank b0 + lane / cw, channel lane % cw)
-          if (on) {
-            st_idx[__popc(below)] = d;
-            st_m[__popc(below)] = m;
-          }
-          __syncwarp();
-          const int n_live = __popc(live);
-          const int c = lane & (cw - 1);
-          for (int b0 = lane >> cw_log; b0 < n_live; b0 += kLoads * spl) {
-            // kLoads loads in flight, all issued before the stores
-            float v[kLoads];
-#pragma unroll
-            for (int k = 0; k < kLoads; ++k) {
-              const int b = b0 + k * spl;
-              v[k] = b < n_live && c < cout
-                         ? st_m[b] * __ldg(g + (long long)st_idx[b] * cout + c) : 0.f;
-            }
-#pragma unroll
-            for (int k = 0; k < kLoads; ++k)
-              if (b0 + k * spl < 32) st_row[(b0 + k * spl) * 32 + c] = v[k];
-          }
-          __syncwarp();
-          // walk the runs: sum each run's rows, buffer it when the next starts
-          unsigned pending = live;
-          int b = 0;
-          while (pending) {
-            const int j = __ffs(pending) - 1;
-            if ((run_start >> j) & 1u) {           // warp-uniform
-              push_run();
-              cur_s = __shfl_sync(kFull, s, j);
-              cur_t = __shfl_sync(kFull, t, j);
-            }
-            const unsigned later = run_start & pending & (pending - 1u);
-            const unsigned seg = later ? pending & ((later & (0u - later)) - 1u) : pending;
-            const int n = __popc(seg);
-            float a0 = 0.f, a1 = 0.f;
-            int i = 0;
-            for (; i + 2 <= n; i += 2) {
-              a0 += st_row[(b + i) * 32 + lane];
-              a1 += st_row[(b + i + 1) * 32 + lane];
-            }
-            if (i < n) a0 += st_row[(b + i) * 32 + lane];
-            u += a0 + a1;
-            b += n;
-            pending &= ~seg;
-          }
-          __syncwarp();   // the staging is rewritten by the next group
-        }
-      }
-    }
-    push_run();
+      ++n_buf;
+    });
     flush_buffer();
     flush_row();
 

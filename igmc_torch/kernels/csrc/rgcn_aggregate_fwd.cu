@@ -37,7 +37,8 @@
 //     block_align_edges puts at the tail of chunk 0 costs every warp alike;
 //     a warp checks 8 of its tiles at once with one 16-byte mask load per
 //     lane and tile, and skips the tiles with no live slot.
-//   * A live tile is walked as four 32-slot groups, slots on lanes. Ballots
+//   * A live tile is walked (walk_runs in rgcn_aggregate_common.cuh, the
+//     walk the backward kernel shares) as four 32-slot groups, slots on lanes. Ballots
 //     find the live slots (mask != 0, relation in this pass) and where a run
 //     starts (its (dst, relation) differs from the live slot before it); the
 //     rows mask * x[src] of the live slots are gathered, 16 loads in flight,
@@ -82,12 +83,7 @@ namespace {
 constexpr int kCluster = 4;      // CTAs per output chunk
 constexpr int kWarps = 8;        // warps per CTA
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 128;       // plan slots a warp takes at a time
-constexpr int kAhead = 8;        // tiles whose masks a warp checks at once
-constexpr int kLoads = 16;       // rows a warp gathers at once
-// per-warp staging in shared memory: of one 32-slot group the live slots'
-// src and mask and gathered rows
-constexpr int kStageWords = 2 * 32 + 32 * 32;
+constexpr int kStageWords = kWalkWords;   // per-warp staging of walk_runs
 
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
 rgcn_aggregate_fwd_kernel(const float* __restrict__ x,
@@ -104,9 +100,7 @@ rgcn_aggregate_fwd_kernel(const float* __restrict__ x,
   extern __shared__ float smem[];
   const int rpc = (rows + kCluster - 1) / kCluster;   // rows each CTA owns
   const int warp = threadIdx.x >> 5;
-  int* st_src = reinterpret_cast<int*>(smem) + warp * kStageWords;  // [32]
-  float* st_m = reinterpret_cast<float*>(st_src + 32);               // [32]
-  float* st_row = st_m + 32;                                         // [32][32]
+  float* stage = smem + warp * kStageWords;
   float* s_acc = smem + kWarps * kStageWords;          // [rpc, cout]
   float* s_w = s_acc + rpc * cout;                     // [rel_per_pass, cin, cout]
   __shared__ long long s_range[2];
@@ -118,10 +112,6 @@ rgcn_aggregate_fwd_kernel(const float* __restrict__ x,
   const int wid = rank * kWarps + warp;                // warp index in the cluster
   const int stride = kCluster * kWarps;
   const int o = lane < cout ? lane : 0;                // lanes past cout compute on 0
-  // a gathered row fills cw lanes (cin rounded up to a power of two), so one
-  // load instruction gathers spl = 32 / cw rows
-  const int cw_log = cin > 1 ? 32 - __clz(cin - 1) : 0;
-  const int cw = 1 << cw_log, spl = 32 >> cw_log;
 
   chunk_range(chunk_of_block, nblk, chunk, eblk, s_range);
   for (int j = threadIdx.x; j < rpc * cout; j += kThreads) s_acc[j] = 0.f;
@@ -133,140 +123,37 @@ rgcn_aggregate_fwd_kernel(const float* __restrict__ x,
     // the first time, every CTA's accumulator must be zero before any
     // warp of the cluster adds to it
     if (r0 == 0) cluster.sync(); else __syncthreads();
-    const long long e_begin = s_range[0], e_end = s_range[1];
-    const int n_tiles = (int)((e_end - e_begin + kTile - 1) / kTile);
 
-    float u = 0.f;        // lane i: sum of mask * x[src][i] over the open run
     float carry = 0.f;    // lane o: the open row's sum of run products
-    int cur_d = -1, cur_t = -1;   // the open run's row and relation
-
-    // the open run's product with W_r, into the row carry
-    auto flush_run = [&]() {
-      if (cur_t >= 0) {
-        const float* w = s_w + (cur_t - r0) * cin * cout + o;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        int i = 0;
-        for (; i + 4 <= cin; i += 4) {
-          a0 = fmaf(__shfl_sync(kFull, u, i), w[i * cout], a0);
-          a1 = fmaf(__shfl_sync(kFull, u, i + 1), w[(i + 1) * cout], a1);
-          a2 = fmaf(__shfl_sync(kFull, u, i + 2), w[(i + 2) * cout], a2);
-          a3 = fmaf(__shfl_sync(kFull, u, i + 3), w[(i + 3) * cout], a3);
-        }
-        for (; i < cin; ++i) a0 = fmaf(__shfl_sync(kFull, u, i), w[i * cout], a0);
-        carry += (a0 + a1) + (a2 + a3);
-      }
-      u = 0.f;
-    };
+    int open_row = -1;
     // the open row's carry into the accumulator of the CTA that owns it
     auto flush_row = [&]() {
-      if (cur_d >= 0 && lane < cout) {
-        float* acc = cluster.map_shared_rank(s_acc, cur_d / rpc);
-        atomicAdd(acc + (cur_d % rpc) * cout + lane, carry);
+      if (open_row >= 0 && lane < cout) {
+        float* acc = cluster.map_shared_rank(s_acc, open_row / rpc);
+        atomicAdd(acc + (open_row % rpc) * cout + lane, carry);
       }
       carry = 0.f;
     };
-
-    for (int tb = wid; tb < n_tiles; tb += kAhead * stride) {
-      // skip the tiles of this warp's next kAhead that hold no live slot
-      // (one 16-byte mask load per lane and tile)
-      unsigned live_tiles = 0;
-#pragma unroll
-      for (int q = 0; q < kAhead; ++q) {
-        const long long e = e_begin + (long long)(tb + q * stride) * kTile + 4 * lane;
-        float4 m4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (e < e_end) m4 = __ldg(reinterpret_cast<const float4*>(mask + e));
-        const bool any = m4.x != 0.f || m4.y != 0.f || m4.z != 0.f || m4.w != 0.f;
-        live_tiles |= (unsigned)__any_sync(kFull, any) << q;
+    // each finished (dst, relation) run: its product with W_r into the
+    // row's carry (lane i of u holds the run's sum of channel i)
+    walk_runs(x, cin, src, dstl, etype, mask, s_range[0], s_range[1], wid, stride,
+              r0, nr, stage, [&](int row, int t, float u) {
+      if (row != open_row) {
+        flush_row();
+        open_row = row;
       }
-#pragma unroll 1
-      for (int q = 0; q < kAhead; ++q) {
-        if (!((live_tiles >> q) & 1u)) continue;
-        // the tile's slots, one 32-slot group per register
-        const long long base = e_begin + (long long)(tb + q * stride) * kTile;
-        float tm[kTile / 32];
-        int ts[kTile / 32], td[kTile / 32], tt[kTile / 32];
-#pragma unroll
-        for (int k = 0; k < kTile / 32; ++k) {
-          const long long e = base + 32 * k + lane;
-          const bool valid = e < e_end;
-          tm[k] = valid ? __ldg(mask + e) : 0.f;
-          ts[k] = valid ? __ldg(src + e) : 0;
-          td[k] = valid ? __ldg(dstl + e) : 0;
-          tt[k] = valid ? __ldg(etype + e) : 0;
-        }
-        static_assert(kTile == 128, "the selects below take four groups");
-#pragma unroll 1
-        for (int k = 0; k < kTile / 32; ++k) {
-          const float m = k == 0 ? tm[0] : k == 1 ? tm[1] : k == 2 ? tm[2] : tm[3];
-          const int s = k == 0 ? ts[0] : k == 1 ? ts[1] : k == 2 ? ts[2] : ts[3];
-          const int d = k == 0 ? td[0] : k == 1 ? td[1] : k == 2 ? td[2] : td[3];
-          const int t = k == 0 ? tt[0] : k == 1 ? tt[1] : k == 2 ? tt[2] : tt[3];
-          const bool on = m != 0.f && (unsigned)(t - r0) < (unsigned)nr;
-          const unsigned live = __ballot_sync(kFull, on);
-          if (!live) continue;
-          // where runs and rows start: each live slot against the live slot
-          // before it (the first against the open run)
-          const unsigned below = live & ((1u << lane) - 1u);
-          const int pj = below ? 31 - __clz(below) : lane;
-          const int pd = __shfl_sync(kFull, d, pj), pt = __shfl_sync(kFull, t, pj);
-          const int prev_d = below ? pd : cur_d, prev_t = below ? pt : cur_t;
-          const unsigned row_start = __ballot_sync(kFull, on && d != prev_d);
-          const unsigned run_start = __ballot_sync(kFull, on && (d != prev_d || t != prev_t));
-          // gather mask * x[src] of the live slots in slot order: lane ->
-          // (slot rank b0 + lane / cw, channel lane % cw)
-          if (on) {
-            st_src[__popc(below)] = s;
-            st_m[__popc(below)] = m;
-          }
-          __syncwarp();
-          const int n_live = __popc(live);
-          const int c = lane & (cw - 1);
-          for (int b0 = lane >> cw_log; b0 < n_live; b0 += kLoads * spl) {
-            // kLoads loads in flight, all issued before the stores
-            float v[kLoads];
-#pragma unroll
-            for (int k = 0; k < kLoads; ++k) {
-              const int b = b0 + k * spl;
-              v[k] = b < n_live && c < cin
-                         ? st_m[b] * __ldg(x + (long long)st_src[b] * cin + c) : 0.f;
-            }
-#pragma unroll
-            for (int k = 0; k < kLoads; ++k)
-              if (b0 + k * spl < 32) st_row[(b0 + k * spl) * 32 + c] = v[k];
-          }
-          __syncwarp();
-          // walk the runs: sum each run's rows, product at its end
-          unsigned pending = live;
-          int b = 0;
-          while (pending) {
-            const int j = __ffs(pending) - 1;
-            if ((run_start >> j) & 1u) {           // warp-uniform
-              flush_run();
-              if ((row_start >> j) & 1u) {
-                flush_row();
-                cur_d = __shfl_sync(kFull, d, j);
-              }
-              cur_t = __shfl_sync(kFull, t, j);
-            }
-            const unsigned later = run_start & pending & (pending - 1u);
-            const unsigned seg = later ? pending & ((later & (0u - later)) - 1u) : pending;
-            const int n = __popc(seg);
-            float a0 = 0.f, a1 = 0.f;
-            int i = 0;
-            for (; i + 2 <= n; i += 2) {
-              a0 += st_row[(b + i) * 32 + lane];
-              a1 += st_row[(b + i + 1) * 32 + lane];
-            }
-            if (i < n) a0 += st_row[(b + i) * 32 + lane];
-            u += a0 + a1;
-            b += n;
-            pending &= ~seg;
-          }
-          __syncwarp();   // the staging is rewritten by the next group
-        }
+      const float* w = s_w + (t - r0) * cin * cout + o;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      int i = 0;
+      for (; i + 4 <= cin; i += 4) {
+        a0 = fmaf(__shfl_sync(kFull, u, i), w[i * cout], a0);
+        a1 = fmaf(__shfl_sync(kFull, u, i + 1), w[(i + 1) * cout], a1);
+        a2 = fmaf(__shfl_sync(kFull, u, i + 2), w[(i + 2) * cout], a2);
+        a3 = fmaf(__shfl_sync(kFull, u, i + 3), w[(i + 3) * cout], a3);
       }
-    }
-    flush_run();
+      for (; i < cin; ++i) a0 = fmaf(__shfl_sync(kFull, u, i), w[i * cout], a0);
+      carry += (a0 + a1) + (a2 + a3);
+    });
     flush_row();
   }
   cluster.sync();   // every row carry of the cluster has landed

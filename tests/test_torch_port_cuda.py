@@ -151,12 +151,15 @@ def test_cuda_autograd_matches_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [True, False])
 @pytest.mark.parametrize("cin", [4, 32])
-def test_cuda_kernels_many_relations(cin):
+def test_cuda_kernels_many_relations(cin, need_dx):
     """K1 and K2 at R = 71 (yahoo_music's rating levels; at Cin 32 W_r for
     every relation does not fit a block's shared memory, so both kernels
-    take the relations in groups) against the float64 plain versions:
-    K1 rtol 1e-5 / atol 1e-4, K2 within 1e-5 of each entry's sum of |terms|."""
+    take the relations in groups, K2 in a layout of its own with and
+    without dx) against the float64 plain versions: K1 rtol 1e-5 / atol
+    1e-4, K2 within 1e-5 of each entry's sum of |terms| (datt and dbasis
+    only, without dx)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     N, E, R, B, Cout, rows, eblk = 512, 6000, 71, 4, 32, 256, 1024
@@ -178,9 +181,13 @@ def test_cuda_kernels_many_relations(cin):
     args = [g] + ops
     want = rgcn_aggregate_bwd_ref(*(a.double() for a in args), plan_t, rows)
     terms = rgcn_aggregate_bwd_ref(*(a.double().abs() for a in args), plan_t, rows)
-    got = rgcn_aggregate_bwd(*args, plan_t, rows)
+    got = rgcn_aggregate_bwd(*args, plan_t, rows, need_dx=need_dx)
     torch.cuda.synchronize()
-    for name, gv, wv, tv in zip(("dx", "datt", "dbasis"), got, want, terms):
+    names = ("dx", "datt", "dbasis")
+    if not need_dx:
+        assert got[0] is None
+        names, got, want, terms = names[1:], got[1:], want[1:], terms[1:]
+    for name, gv, wv, tv in zip(names, got, want, terms):
         assert_close_to_terms(gv, wv, tv, name)
 
 
