@@ -45,7 +45,27 @@ non-zero:
      entry;
   8. closing the loop: `test_once(ensemble=True)` over the two checkpoints
      the training wrote, on the card, with K1's launch count and the RMSE
-     recomputed from the card's predictions.
+     recomputed from the card's predictions;
+  9. dense evaluation (the JAX CLI's main path): phase 5's ensemble through
+     `test_once(..., batch_mode="dense", dense_layout="bipartite")`, its
+     size buckets printed, K1 and K2 launching 0 times; the RMSE recomputed
+     from the card's dense predictions (1e-5); each member's dense
+     predictions against its flat (K1) predictions of phase 5 in dataset
+     order (atol 1e-4, the same function on two layouts); the forward time
+     per device-assembled batch by bucket (CUDA events), the assembly time,
+     a profile of the forward; 5 batches card against CPU (atol 1e-4);
+ 10. dense training: `train_multiple_epochs(..., batch_mode="dense",
+     dense_layout="bipartite")` with phase 6's settings for 2 epochs, K1
+     and K2 launching 0 times, losses finite and falling, each epoch's wall
+     time split into the host's epoch plan and the rest; the step time over
+     device-assembled batches (CUDA events) and a profile of the steps;
+ 11. card against CPU on the dense path: phase 7's check on a
+     device-assembled training batch (hash edge dropout on packed edge ids);
+ 12. the CLI: `python -m igmc_torch.cli.main --data-name ml_1m --testing
+     --ensemble --epochs 2 --save-interval 1` on the same 2,000 + 2,000
+     pairs in a subprocess and a temporary directory: exit 0, `batch mode:
+     dense (auto)` and `dense layout: bipartite (auto)`, and a log.txt of
+     two epoch lines and the ensemble line, each with a finite RMSE.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -492,6 +512,263 @@ def profile(fn, label, n):
     return {e.key: e.device_time_total / 1e3 for e in events}, busy_ms, window_ms
 
 
+def dense_eval(cfg, states, ckpts, template, test_ds, flat_preds, dev_batches,
+               dev, reset_counts, read_counts, expect):
+    """Phase 9: the two-checkpoint ensemble on the dense bipartite layout
+    through test_once; its RMSE recomputed from the card's predictions;
+    each member's dense predictions against its flat (K1) predictions of
+    phase 5; forward time per batch by bucket; the card against the CPU."""
+    import torch
+    from igmc_torch.batching import DeviceDataset
+    from igmc_torch.models import IGMC
+    from igmc_torch.train import (DensePass, dense_predict_all, make_eval_step,
+                                  plan_buckets, test_once)
+
+    buckets = plan_buckets(test_ds, "bipartite")
+    for b in buckets:
+        print(f"[dense eval] bucket {b.node_slot} node rows ({b.num_u_slot} users | "
+              f"{b.node_slot - b.num_u_slot} items) x {b.edge_slot} edge slots: "
+              f"{len(b.indices)} graphs")
+    reset_counts()
+    t0 = time.perf_counter()
+    rmse = test_once(test_ds, template, BATCH_SIZE, ensemble=True, checkpoints=ckpts,
+                     batch_mode="dense", dense_layout="bipartite", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("dense_eval")
+    print(f"[dense eval] ensemble of {len(ckpts)} over {len(test_ds)} pairs: RMSE "
+          f"{rmse:.6f}, {wall:.2f} s wall (device upload and bucket plan included)")
+    expect("dense_eval", "rgcn_aggregate_fwd", 0)
+    expect("dense_eval", "rgcn_aggregate_bwd", 0)
+    if not math.isfinite(rmse):
+        fail(f"dense ensemble RMSE is not finite: {rmse}")
+
+    dd = DeviceDataset(test_ds.packed, dev)
+    epoch = DensePass.plan(buckets, BATCH_SIZE, 8, dev)
+    models, preds = [], []
+    for sd in states:
+        m = IGMC(cfg, torch.Generator().manual_seed(0))
+        m.load_state_dict(sd)
+        models.append(m.to(dev).eval())
+        preds.append(dense_predict_all(make_eval_step(models[-1]), dd, epoch))
+    ys = np.asarray(test_ds.packed.y, np.float32)
+    for p in preds:
+        if p.shape != ys.shape or not np.isfinite(p).all():
+            fail(f"dense predictions of shape {p.shape} (expected {ys.shape}) or "
+                 f"not finite")
+    again = math.sqrt(float(np.mean((np.mean(preds, axis=0) - ys) ** 2)))
+    if abs(again - rmse) > 1e-5:
+        fail(f"dense eval: test_once RMSE {rmse} != recomputed {again}")
+    worst = 0.0
+    for i, (p, fp) in enumerate(zip(preds, flat_preds)):
+        flat = torch.cat([q[b.graph_mask] for q, b in zip(fp, dev_batches)]).cpu().numpy()
+        diff = float(np.abs(p - flat).max())
+        worst = max(worst, diff)
+        if not diff <= PRED_ATOL:
+            fail(f"member {i + 1}: dense predictions differ from the flat K1 path's "
+                 f"by {diff} > {PRED_ATOL}")
+    print(f"[dense eval] ensemble RMSE recomputed from the card's dense predictions "
+          f"{again:.6f}; dense (bipartite) vs flat (K1) predictions of both members "
+          f"in dataset order: max abs diff {worst:.3e} (atol {PRED_ATOL})")
+
+    batches = list(epoch.batches(dd))
+    model = models[-1]
+    assemble_ms = cuda_ms(lambda: list(epoch.batches(dd)), 5) / len(batches)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: [model(b) for b in batches], 5) / len(batches)
+        parts = []
+        for bi, b in enumerate(buckets):
+            mine = [x for x, k in zip(batches, epoch.bucket_of) if k == bi]
+            ms = cuda_ms(lambda: [model(x) for x in mine], 5) / len(mine)
+            parts.append(f"bucket {b.node_slot} x {b.edge_slot}: {ms:.4f} ms "
+                         f"({len(mine)} batches)")
+    print(f"[dense eval] forward {fwd_ms:.4f} ms per batch over {len(batches)} "
+          f"device-assembled batches (CUDA events); " + "; ".join(parts)
+          + f"; assembly on the card {assemble_ms:.4f} ms per batch")
+
+    def forward_all():
+        with torch.no_grad():
+            for b in batches:
+                model(b)
+
+    _, busy_ms, _ = profile(forward_all, "dense forward", f"{len(batches)} batches")
+    print(f"[profile]   device dense forward {busy_ms / len(batches):.4f} ms of "
+          f"kernels per batch")
+    cpu_model = IGMC(cfg, torch.Generator().manual_seed(0))
+    cpu_model.load_state_dict(states[-1])
+    cpu_model.eval()
+    worst = 0.0
+    with torch.no_grad():
+        for b in batches[:CPU_BATCHES]:
+            p_card, p_cpu = model(b).cpu(), cpu_model(b.to("cpu"))
+            worst = max(worst, float((p_card - p_cpu).abs().max()))
+            try:
+                torch.testing.assert_close(p_card, p_cpu, rtol=0, atol=PRED_ATOL)
+            except AssertionError as e:
+                fail(f"dense card predictions disagree with the CPU: {e}")
+    print(f"[dense eval] card vs CPU on {CPU_BATCHES} dense batches of member 2: "
+          f"max abs diff {worst:.3e} (atol {PRED_ATOL})")
+
+
+def dense_train(cfg, train_ds, test_ds, work, dev, reset_counts, read_counts,
+                expect):
+    """Phase 10: train_multiple_epochs on the dense bipartite layout; then
+    the step time over device-assembled batches and a profile of the steps.
+    Returns epoch 1's device-assembled training batches."""
+    import torch
+    from igmc_torch.batching import DeviceDataset
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.train import (DensePass, checkpoint_path, make_optimizer,
+                                  make_train_step, plan_buckets,
+                                  train_multiple_epochs)
+    from igmc_torch.utils import ResultsDir, make_logger
+
+    buckets = plan_buckets(train_ds, "bipartite")
+    for b in buckets:
+        print(f"[dense train] bucket {b.node_slot} node rows ({b.num_u_slot} | "
+              f"{b.node_slot - b.num_u_slot}) x {b.edge_slot} edge slots: "
+              f"{len(b.indices)} graphs")
+    res = ResultsDir(work, "ml_1m", "_chip_smoke_dense", True)
+    infos = []
+    log = make_logger(res, 1)
+
+    def logger(info, state):
+        infos.append(dict(info))
+        log(info, state)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    final_rmse, state = train_multiple_epochs(
+        train_ds, test_ds, IGMC(cfg, torch.Generator().manual_seed(3)),
+        epochs=EPOCHS, batch_size=BATCH_SIZE, lr=1e-3, lr_decay_factor=0.1,
+        lr_decay_step_size=50, ARR=0.001, test_freq=1, logger=logger, seed=1,
+        batch_mode="dense", dense_layout="bipartite", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("dense_train")
+    for info, h in zip(infos, state.history):
+        print(f"[dense train] epoch {info['epoch']}: train loss "
+              f"{info['train_loss']:.6f}, test rmse {info['test_rmse']:.6f}; "
+              f"{h['seconds']:.3f} s wall, of which host (epoch plan) "
+              f"{h['host_seconds']:.3f} s, the rest "
+              f"{h['seconds'] - h['host_seconds']:.3f} s")
+    print(f"[dense train] {EPOCHS} epochs, {wall:.2f} s wall (device upload and "
+          f"bucket plans included)")
+    expect("dense_train", "rgcn_aggregate_fwd", 0)
+    expect("dense_train", "rgcn_aggregate_bwd", 0)
+    losses = [i["train_loss"] for i in infos]
+    rmses = [i["test_rmse"] for i in infos]
+    if not all(math.isfinite(v) for v in losses + rmses):
+        fail(f"dense training losses {losses} or RMSEs {rmses} are not finite")
+    if not losses[1] < losses[0]:
+        fail(f"dense: epoch 2's train loss {losses[1]} is not below epoch 1's "
+             f"{losses[0]}")
+    for e in (1, 2):
+        if not os.path.isfile(checkpoint_path(res.path, "model", e)):
+            fail(f"dense training wrote no model checkpoint of epoch {e}")
+
+    # the step on device-assembled batches of epoch 1's plan, CUDA events
+    dd = DeviceDataset(train_ds.packed, dev)
+    epoch = DensePass.plan(buckets, BATCH_SIZE, 8, dev,
+                           np.random.default_rng(np.random.SeedSequence([1, 1])))
+    dtrain = list(epoch.batches(dd))
+    noise_gen = torch.Generator().manual_seed(4)
+    noises = [(s, k.to(dev)) for s, k in
+              (draw_noise(noise_gen, BATCH_SIZE) for _ in dtrain)]
+    m = IGMC(cfg, torch.Generator().manual_seed(3)).to(dev).train()
+    step = make_train_step(m, make_optimizer(m.parameters(), 1e-3), 0.001)
+    for b, nz in zip(dtrain[:2], noises[:2]):
+        step(b, nz)
+
+    def steps_all():
+        for b, nz in zip(dtrain, noises):
+            step(b, nz)
+
+    step_ms = cuda_ms(steps_all, 1, warmup=0) / len(dtrain)
+    print(f"[dense train] step {step_ms:.4f} ms (assembled batch in, forward + "
+          f"backward + Adam), CUDA events over {len(dtrain)} device-assembled "
+          f"batches")
+    _, busy_ms, _ = profile(steps_all, "dense training steps", f"{len(dtrain)} steps")
+    print(f"[profile]   {busy_ms / len(dtrain):.4f} ms of kernels per dense step")
+    return dtrain
+
+
+def run_cli(raw_data: str) -> None:
+    """Phase 12: `python -m igmc_torch.cli.main` on ML-1M in a subprocess
+    and a temporary working directory; it must pick the dense bipartite
+    layout itself, train 2 epochs, ensemble and write log.txt."""
+    cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "ml_1m",
+           "--testing", "--ensemble", "--epochs", "2", "--save-interval", "1",
+           "--max-train-num", str(MAX_NUM), "--max-test-num", str(MAX_NUM),
+           "--max-nodes-per-hop", "100"]
+    path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, IGMC_RAW_DATA=raw_data, PYTHONPATH=path)
+    with tempfile.TemporaryDirectory() as cwd:
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                                 text=True, timeout=600)
+        except subprocess.TimeoutExpired:
+            fail("the CLI did not finish within 600 s")
+        wall = time.perf_counter() - t0
+        print(f"[cli] python {' '.join(cmd[1:])}: exit {out.returncode}, "
+              f"{wall:.2f} s")
+        if out.returncode != 0:
+            print(out.stdout[-4000:])
+            print(out.stderr[-4000:], file=sys.stderr)
+            fail(f"the CLI exited {out.returncode}")
+        lines = out.stdout.splitlines()
+        for want in ("batch mode: dense (auto)", "dense layout: bipartite (auto)"):
+            if want not in lines:
+                fail(f"the CLI did not print {want!r}")
+        for line in lines:
+            if line.startswith(("batch mode", "dense layout", "Epoch", "Ensemble")):
+                print(f"[cli]   {line}")
+        log_path = os.path.join(cwd, "results", "ml_1m_testmode", "log.txt")
+        log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
+    heads = ["Epoch 1,", "Epoch 2,", "Epoch ensemble of range(-13, 2, 5),"]
+    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
+        fail(f"the CLI's log.txt reads {log}")
+    for line in log:
+        if not math.isfinite(float(line.split()[-1])):
+            fail(f"the CLI's log.txt has a RMSE that is not finite: {line}")
+        print(f"[cli] log.txt: {line}")
+
+
+def card_vs_cpu_step(cfg, batch, label):
+    """One training step's loss and gradients from the same weights (seed
+    5), `batch` and noise on the card and on the CPU: loss to rtol 1e-5,
+    every gradient to rtol GRAD_TOL / atol GRAD_TOL of its largest entry."""
+    import torch
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.train import loss_fn
+
+    grads, loss_vals = {}, {}
+    noise = draw_noise(torch.Generator().manual_seed(9), batch.num_graphs)
+    for where in ("cpu", "cuda"):
+        mm = IGMC(cfg, torch.Generator().manual_seed(5)).to(where).train()
+        loss, _ = loss_fn(mm, batch.to(where), (noise[0], noise[1].to(where)), 0.001)
+        loss.backward()
+        loss_vals[where] = loss.item()
+        grads[where] = {k: p.grad.cpu() for k, p in mm.named_parameters()}
+    if abs(loss_vals["cuda"] - loss_vals["cpu"]) > 1e-5 * abs(loss_vals["cpu"]):
+        fail(f"{label}: training loss on the card {loss_vals['cuda']} != CPU "
+             f"{loss_vals['cpu']}")
+    worst = 0.0
+    for k, gc in grads["cpu"].items():
+        gg = grads["cuda"][k]
+        scale = float(gc.abs().max())
+        worst = max(worst, float((gg - gc).abs().max()) / max(scale, 1e-30))
+        try:
+            torch.testing.assert_close(gg, gc, rtol=GRAD_TOL, atol=GRAD_TOL * scale)
+        except AssertionError as e:
+            fail(f"{label}: gradient of {k} on the card disagrees with the CPU: {e}")
+    print(f"[{label}] one training step: loss {loss_vals['cuda']:.6f} "
+          f"(card) vs {loss_vals['cpu']:.6f} (CPU); worst gradient "
+          f"difference {worst:.3e} of its parameter's largest entry "
+          f"(rtol {GRAD_TOL}, atol {GRAD_TOL} of the largest entry)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--raw-data", default=os.environ.get("IGMC_RAW_DATA")
@@ -512,7 +789,7 @@ def main() -> None:
     from igmc_torch.kernels.build import KERNELS, build_many
     from igmc_torch.kernels.rgcn_aggregate import rgcn_aggregate, rgcn_aggregate_bwd
     from igmc_torch.models import IGMC, IGMCConfig, draw_noise
-    from igmc_torch.train import (checkpoint_path, load_checkpoint, loss_fn,
+    from igmc_torch.train import (checkpoint_path, load_checkpoint,
                                   make_optimizer, make_train_step, save_pth,
                                   test_once, train_multiple_epochs)
     from igmc_torch.utils import ResultsDir, make_logger
@@ -735,32 +1012,7 @@ def main() -> None:
 
         # ---- 7. card against CPU ---------------------------------------------
         with phase("card against CPU"):
-            grads, loss_vals = {}, {}
-            noise = draw_noise(torch.Generator().manual_seed(9), BATCH_SIZE)
-            for where in ("cpu", "cuda"):
-                mm = IGMC(cfg, torch.Generator().manual_seed(5)).to(where).train()
-                loss, _ = loss_fn(mm, train_batches[0].to(where),
-                                  (noise[0], noise[1].to(where)), 0.001)
-                loss.backward()
-                loss_vals[where] = loss.item()
-                grads[where] = {k: p.grad.cpu() for k, p in mm.named_parameters()}
-            if abs(loss_vals["cuda"] - loss_vals["cpu"]) > 1e-5 * abs(loss_vals["cpu"]):
-                fail(f"training loss on the card {loss_vals['cuda']} != CPU "
-                     f"{loss_vals['cpu']}")
-            worst = 0.0
-            for k, gc in grads["cpu"].items():
-                gg = grads["cuda"][k]
-                scale = float(gc.abs().max())
-                worst = max(worst, float((gg - gc).abs().max()) / max(scale, 1e-30))
-                try:
-                    torch.testing.assert_close(gg, gc, rtol=GRAD_TOL,
-                                               atol=GRAD_TOL * scale)
-                except AssertionError as e:
-                    fail(f"gradient of {k} on the card disagrees with the CPU: {e}")
-            print(f"[card vs CPU] one training step: loss {loss_vals['cuda']:.6f} "
-                  f"(card) vs {loss_vals['cpu']:.6f} (CPU); worst gradient "
-                  f"difference {worst:.3e} of its parameter's largest entry "
-                  f"(rtol {GRAD_TOL}, atol {GRAD_TOL} of the largest entry)")
+            card_vs_cpu_step(cfg, train_batches[0], "card vs CPU")
 
         # ---- 8. closing the loop ---------------------------------------------
         with phase("trained ensemble"):
@@ -771,14 +1023,32 @@ def main() -> None:
             read_counts("trained_ensemble")
             expect("trained_ensemble", "rgcn_aggregate_fwd",
                    layers * len(batches) * len(trained))
-            member_preds, fwd_ms, _ = member_predictions(
+            trained_preds, _, _ = member_predictions(
                 cfg, [load_checkpoint(p) for p in trained], dev_batches)
-            again = recomputed_rmse(member_preds, dev_batches, rmse_t,
+            again = recomputed_rmse(trained_preds, dev_batches, rmse_t,
                                     "trained ensemble")
             print(f"[trained ensemble] RMSE {rmse_t:.6f} over the checkpoints of "
                   f"epochs 1 and 2 (single model after epoch 2: "
                   f"{final_rmse:.6f}); recomputed from the card's predictions "
                   f"{again:.6f}")
+
+        # ---- 9. dense evaluation ---------------------------------------------
+        with phase("dense evaluation"):
+            dense_eval(cfg, states, ckpts, template, test_ds, member_preds,
+                       dev_batches, dev, reset_counts, read_counts, expect)
+
+        # ---- 10. dense training ----------------------------------------------
+        with phase("dense training"):
+            dtrain = dense_train(cfg, train_ds, test_ds, work, dev, reset_counts,
+                                 read_counts, expect)
+
+        # ---- 11. card against CPU, dense ---------------------------------------
+        with phase("card against CPU, dense"):
+            card_vs_cpu_step(cfg, dtrain[0], "card vs CPU, dense")
+
+    # ---- 12. the CLI -----------------------------------------------------------
+    with phase("cli"):
+        run_cli(args.raw_data)
 
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]

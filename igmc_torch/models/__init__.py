@@ -1,4 +1,7 @@
 from .igmc import IGMC, IGMCConfig, arr_regularizer, draw_noise
-from .rgcn import RGCNConv
+from .rgcn import (DensePlan, RGCNConv, dense_plan, rgcn_dense_apply,
+                   rgcn_dense_bipartite_apply, rgcn_dense_layer)
 
-__all__ = ["IGMC", "IGMCConfig", "RGCNConv", "arr_regularizer", "draw_noise"]
+__all__ = ["DensePlan", "IGMC", "IGMCConfig", "RGCNConv", "arr_regularizer",
+           "dense_plan", "draw_noise", "rgcn_dense_apply",
+           "rgcn_dense_bipartite_apply", "rgcn_dense_layer"]

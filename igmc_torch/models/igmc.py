@@ -1,17 +1,26 @@
-"""The IGMC model over flat padded graph batches.
+"""The IGMC model over flat padded graph batches and dense slot batches.
 
-Port of igmc_tpu/models/igmc.py (IGMCConfig, igmc_init, the flat branch of
-igmc_forward with use_pallas, arr_regularizer): one-hot hop labels, 4 R-GCN
-layers with tanh whose aggregate runs through the fused kernels
-(kernels/rgcn_aggregate.py), the concatenated states of the target user
-and target item, then relu(lin1), feature dropout 0.5 in training, and
-lin2, times `multiply_by`.
+Port of igmc_tpu/models/igmc.py (IGMCConfig, igmc_init, igmc_forward's
+flat branch with use_pallas and its dense branch _igmc_forward_dense,
+arr_regularizer): one-hot hop labels, 4 R-GCN layers with tanh, the states
+of the target user and target item from every layer, then relu(lin1),
+feature dropout 0.5 in training, and lin2, times `multiply_by`.
+
+  * Flat GraphBatch: every layer's aggregate runs through the fused
+    kernels (kernels/rgcn_aggregate.py); aggr mean or sum.
+  * DenseBatch (batching/dense.py): every layer is rgcn_dense_layer over
+    one DensePlan per forward (models/rgcn.py); the targets are slot rows
+    0 and 1 (unified) or 0 and num_u (bipartite); aggr mean, sum or
+    relmean.
 
 In training mode the forward takes its noise from the caller,
-(edge_seed, feature_keep) from `draw_noise`: the edge dropout keeps an edge
-when hash_edge_keep(edge_seed, ukey) clears `adj_dropout`, folded into both
-plans' masks, and feature_keep is lin1's dropout mask. Side features and
-the other aggregation engines and layouts belong to later slices.
+(edge_noise, feature_keep) from `draw_noise`: edge_noise is a seed for
+the hash edge dropout (flat: keyed on the plans' ukey stream, folded into
+both plans' masks; dense: keyed on the batch's packed edge ids), and
+feature_keep is lin1's dropout mask. A dense forward also takes
+edge_noise as a pair of [B, E] keep masks (forward, reverse), so that
+tests can feed it the JAX package's masks. Side features belong to a
+later slice.
 """
 
 from __future__ import annotations
@@ -25,9 +34,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..batching.batch import GraphBatch
+from ..batching.dense import DenseBatch
 from ..kernels.rgcn_aggregate import PLAN_ROWS, _dst_global, rgcn_aggregate
-from ..ops.dropout import feature_dropout, hash_edge_keep
-from .rgcn import RGCNConv, uniform_
+from ..ops.dropout import edge_dropout_dense, feature_dropout, hash_edge_keep
+from .rgcn import RGCNConv, dense_plan, rgcn_dense_layer, uniform_
 
 HIDDEN = 128           # lin1's width
 FEATURE_DROPOUT = 0.5  # dropout after relu(lin1) in training
@@ -42,7 +52,7 @@ class IGMCConfig:
     adj_dropout: float = 0.2
     force_undirected: bool = False
     multiply_by: float = 1.0
-    aggr: str = "mean"                     # rgcn aggregation (mean/sum)
+    aggr: str = "mean"                     # mean/sum (flat), mean/sum/relmean (dense)
 
 
 def _linear(in_features: int, out_features: int,
@@ -74,9 +84,27 @@ class IGMC(nn.Module):
         self.lin1 = _linear(2 * sum(cfg.latent_dim), HIDDEN, generator)
         self.lin2 = _linear(HIDDEN, 1, generator)
 
-    def forward(self, batch: GraphBatch, noise=None) -> torch.Tensor:
-        """Predicted rating per graph, [B] float32. In training mode
-        `noise` = (edge_seed, feature_keep) is required (draw_noise)."""
+    def forward(self, batch, noise=None) -> torch.Tensor:
+        """Predicted rating per graph, [B] float32, of a GraphBatch or a
+        DenseBatch. In training mode `noise` = (edge_noise, feature_keep)
+        is required (draw_noise)."""
+        if self.training and noise is None:
+            raise ValueError("IGMC in training mode needs noise = "
+                             "(edge_seed, feature_keep) from draw_noise; "
+                             "call .eval() to evaluate")
+        edge_noise, feature_keep = noise if self.training else (None, None)
+        if isinstance(batch, DenseBatch):
+            states = self._dense_states(batch, edge_noise)
+        else:
+            states = self._flat_states(batch, edge_noise)
+        h = F.relu(self.lin1(states))
+        if self.training:
+            h = feature_dropout(h, feature_keep, FEATURE_DROPOUT)
+        return self.lin2(h)[:, 0] * self.cfg.multiply_by
+
+    def _flat_states(self, batch: GraphBatch, edge_seed) -> torch.Tensor:
+        """[B, 2 * sum(latent)]: the target user's and target item's states
+        of every layer, through the fused aggregate."""
         cfg = self.cfg
         if cfg.aggr not in ("mean", "sum"):
             raise NotImplementedError(f"aggregate kernel + aggr={cfg.aggr}")
@@ -84,16 +112,10 @@ class IGMC(nn.Module):
         if aligned is None:
             raise ValueError("the IGMC forward needs the batch's aligned edge "
                              "plan (BatchLoader attaches it)")
-        if self.training:
-            if noise is None:
-                raise ValueError("IGMC in training mode needs noise = "
-                                 "(edge_seed, feature_keep) from draw_noise; "
-                                 "call .eval() to evaluate")
-            edge_seed, feature_keep = noise
-            if cfg.adj_dropout > 0:
-                aligned = _drop_edges(aligned, edge_seed, cfg)
-                if aligned_t is not None:
-                    aligned_t = _drop_edges(aligned_t, edge_seed, cfg)
+        if self.training and cfg.adj_dropout > 0:
+            aligned = _drop_edges(aligned, edge_seed, cfg)
+            if aligned_t is not None:
+                aligned_t = _drop_edges(aligned_t, edge_seed, cfg)
         N = batch.node_label.shape[0]
         x = F.one_hot(batch.node_label.long(), cfg.num_features).float()
         x = x * batch.node_mask[:, None].float()
@@ -113,13 +135,37 @@ class IGMC(nn.Module):
             x = torch.tanh(agg + x @ conv.root + conv.bias)
             states.append(x)
         concat_states = torch.cat(states, dim=1)        # [N, sum(latent)]
+        return torch.cat([concat_states[batch.target_u.long()],
+                          concat_states[batch.target_v.long()]], dim=1)
 
-        h = torch.cat([concat_states[batch.target_u.long()],
-                       concat_states[batch.target_v.long()]], dim=1)
-        h = F.relu(self.lin1(h))
-        if self.training:
-            h = feature_dropout(h, feature_keep, FEATURE_DROPOUT)
-        return self.lin2(h)[:, 0] * cfg.multiply_by
+    def _dense_states(self, batch: DenseBatch, edge_noise) -> torch.Tensor:
+        """[B, 2 * sum(latent)]: the target rows' states of every layer of
+        the dense trunk (one DensePlan for all layers)."""
+        cfg = self.cfg
+        mask_f = mask_r = batch.edge_mask
+        if self.training and cfg.adj_dropout > 0:
+            if isinstance(edge_noise, tuple):          # injected keep masks
+                mask_f = batch.edge_mask & edge_noise[0]
+                mask_r = batch.edge_mask & edge_noise[1]
+            elif batch.edge_id is None:
+                raise ValueError("dense edge dropout needs the batch's packed "
+                                 "edge ids (assemble_dense attaches them)")
+            else:
+                mask_f, mask_r = edge_dropout_dense(
+                    batch.edge_mask, batch.edge_id, edge_noise, cfg.adj_dropout,
+                    cfg.force_undirected)
+        x = F.one_hot(batch.node_label.long(), cfg.num_features).float()
+        x = x * batch.node_mask[..., None].float()
+        plan = dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type,
+                          mask_f, mask_r, batch.node_slot, cfg.num_relations,
+                          cfg.aggr)
+        item_row = 1 if batch.num_u is None else batch.num_u
+        users, items = [], []
+        for conv in self.convs:
+            x = torch.tanh(rgcn_dense_layer(conv, x, plan))
+            users.append(x[:, 0])
+            items.append(x[:, item_row])
+        return torch.cat(users + items, dim=1)
 
 
 def _drop_edges(plan, edge_seed: int, cfg: IGMCConfig):

@@ -1,3 +1,3 @@
-from .dropout import feature_dropout, hash_edge_keep
+from .dropout import edge_dropout_dense, feature_dropout, hash_edge_keep
 
-__all__ = ["feature_dropout", "hash_edge_keep"]
+__all__ = ["edge_dropout_dense", "feature_dropout", "hash_edge_keep"]

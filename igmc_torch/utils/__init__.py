@@ -1,3 +1,4 @@
 from .logging import ResultsDir, make_logger
+from .seeding import seed_everything
 
-__all__ = ["ResultsDir", "make_logger"]
+__all__ = ["ResultsDir", "make_logger", "seed_everything"]

@@ -302,9 +302,9 @@ def test_train_multiple_epochs_refuses_what_is_not_ported(data, monkeypatch):
             IGMC(port_cfg(), torch.Generator().manual_seed(0)), 1, BATCH, 1e-3,
             0.1, 50)
     for kw, match in (({"flat_aggregate": "segment"}, "segment"),
-                      ({"batch_mode": "dense"}, "dense"),
+                      ({"batch_mode": "dense", "dense_chunk": 10}, "dense_chunk"),
                       ({"mesh": object()}, "mesh"),
-                      ({"superbatch": 8}, "superbatch"),
+                      ({"batch_mode": "dense", "mesh": object()}, "mesh"),
                       ({"dense_chunk": 10}, "dense_chunk")):
         with pytest.raises(NotImplementedError, match=match):
             train_multiple_epochs(*args, device="cpu", **kw)
