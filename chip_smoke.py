@@ -12,7 +12,8 @@ non-zero:
   3. data: ML-1M ratings (`--raw-data`, default $IGMC_RAW_DATA or the
      repo's raw_data_synth/), testing split with seed 1234, 2,000 held-out
      and 2,000 training pairs, 1-hop subgraphs with at most 100 nodes per
-     hop, flat batches of 50 (the training loader shuffled with seed 1 and
+     hop extracted by the C++ engine (built with g++ from the checkout),
+     flat batches of 50 (the training loader shuffled with seed 1 and
      carrying the src-sorted twin plan);
   4. kernel check: each kernel against its plain PyTorch version (run in
      float64) on the card at the main path's shapes (one real ML-1M batch
@@ -65,7 +66,28 @@ non-zero:
      --ensemble --epochs 2 --save-interval 1` on the same 2,000 + 2,000
      pairs in a subprocess and a temporary directory: exit 0, `batch mode:
      dense (auto)` and `dense layout: bipartite (auto)`, and a log.txt of
-     two epoch lines and the ensemble line, each with a finite RMSE.
+     two epoch lines and the ensemble line, each with a finite RMSE;
+ 13. side features, card against CPU: one ML-1M training batch of 50
+     with `--use-features` widths (users.dat's gender, age, occupation and
+     zip one-hots; movies.dat's genres): one step on the flat layout (K1 +
+     K2, launches counted) and one on the dense bipartite layout, each held
+     against the CPU with phase 7's tolerances, lin1's feature columns
+     included;
+ 14. ml_100k through the CLI: `python -m igmc_torch.cli.main --data-name
+     ml_100k --testing --ensemble --use-features --epochs 2
+     --save-interval 1` in a subprocess: the official-split and features
+     lines, the C++ engine chosen, a log.txt with finite RMSEs;
+ 15. serving at full width on ML-1M: `Predictor` over phase 10's two
+     checkpoints (C++ engine) scores phase 9's 2,000 held-out pairs equal
+     to test_once's dense unified ensemble predictions (atol 1e-5); 200
+     pairs against a CPU Predictor (atol 1e-4); a cold-start user scored
+     finite; an out-of-range pair refused; a slot_ladder giving the same
+     scores; then calls of 1, 128 and 2,000 pairs timed with each engine
+     (host extraction apart from the device part, CUDA events), pairs per
+     second, and the device's busy share over a 2,000-pair call;
+ 16. the serving CLI: `python -m igmc_torch.cli.predict` on phase 14's
+     results in a subprocess, one line per pair, equal to an in-process
+     Predictor's scores to 1e-6.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -93,6 +115,7 @@ PEAK_F32_FLOP_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-4          # K1 vs plain version: summation order
 TERMS_RTOL = 1e-5                # K2 vs plain version, per sum of |terms|
 PRED_ATOL = 1e-4                 # card vs CPU predictions
+SERVE_ATOL = 1e-5                # Predictor vs test_once on the card
 MANY_RELATIONS = 71              # yahoo_music's rating levels
 # the kernels' times per wrapper call before their redesign for the run
 # form, CUDA events (this script, NVIDIA H100 80GB HBM3, 700.00 W), by Cin:
@@ -614,7 +637,8 @@ def dense_train(cfg, train_ds, test_ds, work, dev, reset_counts, read_counts,
                 expect):
     """Phase 10: train_multiple_epochs on the dense bipartite layout; then
     the step time over device-assembled batches and a profile of the steps.
-    Returns epoch 1's device-assembled training batches."""
+    Returns epoch 1's device-assembled training batches and the paths of
+    the two checkpoints it wrote."""
     import torch
     from igmc_torch.batching import DeviceDataset
     from igmc_torch.models import IGMC, draw_noise
@@ -663,9 +687,10 @@ def dense_train(cfg, train_ds, test_ds, work, dev, reset_counts, read_counts,
     if not losses[1] < losses[0]:
         fail(f"dense: epoch 2's train loss {losses[1]} is not below epoch 1's "
              f"{losses[0]}")
-    for e in (1, 2):
-        if not os.path.isfile(checkpoint_path(res.path, "model", e)):
-            fail(f"dense training wrote no model checkpoint of epoch {e}")
+    ckpts = [checkpoint_path(res.path, "model", e) for e in (1, 2)]
+    for c in ckpts:
+        if not os.path.isfile(c):
+            fail(f"dense training wrote no {c}")
 
     # the step on device-assembled batches of epoch 1's plan, CUDA events
     dd = DeviceDataset(train_ds.packed, dev)
@@ -690,7 +715,28 @@ def dense_train(cfg, train_ds, test_ds, work, dev, reset_counts, read_counts,
           f"batches")
     _, busy_ms, _ = profile(steps_all, "dense training steps", f"{len(dtrain)} steps")
     print(f"[profile]   {busy_ms / len(dtrain):.4f} ms of kernels per dense step")
-    return dtrain
+    return dtrain, ckpts
+
+
+def _subprocess(cmd, raw_data, cwd, what, timeout=600):
+    """Run `cmd` in `cwd` with the port importable and IGMC_RAW_DATA set;
+    fail unless it exits 0. Returns (stdout lines, stderr, seconds)."""
+    path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, IGMC_RAW_DATA=raw_data, PYTHONPATH=path)
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"{what} did not finish within {timeout} s")
+    wall = time.perf_counter() - t0
+    print(f"[{what}] python {' '.join(cmd[1:])}: exit {out.returncode}, "
+          f"{wall:.2f} s")
+    if out.returncode != 0:
+        print(out.stdout[-4000:])
+        print(out.stderr[-4000:], file=sys.stderr)
+        fail(f"{what} exited {out.returncode}")
+    return out.stdout.splitlines(), out.stderr, wall
 
 
 def run_cli(raw_data: str) -> None:
@@ -701,23 +747,8 @@ def run_cli(raw_data: str) -> None:
            "--testing", "--ensemble", "--epochs", "2", "--save-interval", "1",
            "--max-train-num", str(MAX_NUM), "--max-test-num", str(MAX_NUM),
            "--max-nodes-per-hop", "100"]
-    path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
-    env = dict(os.environ, IGMC_RAW_DATA=raw_data, PYTHONPATH=path)
     with tempfile.TemporaryDirectory() as cwd:
-        t0 = time.perf_counter()
-        try:
-            out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
-                                 text=True, timeout=600)
-        except subprocess.TimeoutExpired:
-            fail("the CLI did not finish within 600 s")
-        wall = time.perf_counter() - t0
-        print(f"[cli] python {' '.join(cmd[1:])}: exit {out.returncode}, "
-              f"{wall:.2f} s")
-        if out.returncode != 0:
-            print(out.stdout[-4000:])
-            print(out.stderr[-4000:], file=sys.stderr)
-            fail(f"the CLI exited {out.returncode}")
-        lines = out.stdout.splitlines()
+        lines = _subprocess(cmd, raw_data, cwd, "cli")[0]
         for want in ("batch mode: dense (auto)", "dense layout: bipartite (auto)"):
             if want not in lines:
                 fail(f"the CLI did not print {want!r}")
@@ -738,7 +769,8 @@ def run_cli(raw_data: str) -> None:
 def card_vs_cpu_step(cfg, batch, label):
     """One training step's loss and gradients from the same weights (seed
     5), `batch` and noise on the card and on the CPU: loss to rtol 1e-5,
-    every gradient to rtol GRAD_TOL / atol GRAD_TOL of its largest entry."""
+    every gradient to rtol GRAD_TOL / atol GRAD_TOL of its largest entry
+    (with side features, lin1's feature columns are reported apart)."""
     import torch
     from igmc_torch.models import IGMC, draw_noise
     from igmc_torch.train import loss_fn
@@ -763,10 +795,251 @@ def card_vs_cpu_step(cfg, batch, label):
             torch.testing.assert_close(gg, gc, rtol=GRAD_TOL, atol=GRAD_TOL * scale)
         except AssertionError as e:
             fail(f"{label}: gradient of {k} on the card disagrees with the CPU: {e}")
+    extra = ""
+    if cfg.side_features:
+        cols = 2 * sum(cfg.latent_dim)
+        gc, gg = grads["cpu"]["lin1.weight"][:, cols:], grads["cuda"]["lin1.weight"][:, cols:]
+        if not float(gc.abs().max()) > 0:
+            fail(f"{label}: lin1's feature columns got no gradient")
+        extra = (f"; lin1's {gc.shape[1]} feature columns: worst difference "
+                 f"{float((gg - gc).abs().max()) / float(gc.abs().max()):.3e} of "
+                 f"their largest gradient")
     print(f"[{label}] one training step: loss {loss_vals['cuda']:.6f} "
           f"(card) vs {loss_vals['cpu']:.6f} (CPU); worst gradient "
           f"difference {worst:.3e} of its parameter's largest entry "
-          f"(rtol {GRAD_TOL}, atol {GRAD_TOL} of the largest entry)")
+          f"(rtol {GRAD_TOL}, atol {GRAD_TOL} of the largest entry){extra}")
+
+
+def features_phase(split, cfg, dev, reset_counts, read_counts, expect):
+    """Phase 13: one ML-1M training batch of 50 with side features, one
+    step on the flat layout (K1 + K2) and one on the dense bipartite
+    layout, each card against CPU."""
+    from dataclasses import replace
+
+    from igmc_torch.batching import BatchLoader, DeviceDataset, StaticGraphDataset
+    from igmc_torch.train import DensePass, plan_buckets
+
+    t0 = time.perf_counter()
+    ds = StaticGraphDataset(
+        split.adj_train, (split.train_u_indices, split.train_v_indices),
+        split.train_labels, h=1, max_nodes_per_hop=100,
+        u_features=split.u_features, v_features=split.v_features,
+        class_values=split.class_values, max_num=BATCH_SIZE, backend="native")
+    du, dv = ds.packed.u_feat.shape[1], ds.packed.v_feat.shape[1]
+    fcfg = replace(cfg, side_features=True, n_side_features=du + dv)
+    loader = BatchLoader(ds, BATCH_SIZE, shuffle=True, seed=1)
+    loader.epoch = 1
+    flat = next(iter(loader))
+    buckets = plan_buckets(ds, "bipartite")
+    dd = DeviceDataset(ds.packed, dev)
+    dense = next(DensePass.plan(buckets, BATCH_SIZE, 8, dev,
+                                np.random.default_rng(1)).batches(dd))
+    print(f"[features] {len(ds)} training pairs with {du} user features "
+          f"(gender, age, occupation, zip one-hots) and {dv} item features "
+          f"(genres): lin1 takes {2 * sum(cfg.latent_dim)} + {du + dv} inputs; "
+          f"data {time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    card_vs_cpu_step(fcfg, flat, "features, flat")
+    card_vs_cpu_step(fcfg, dense, "features, dense")
+    read_counts("features")
+    layers = len(cfg.latent_dim)
+    expect("features", "rgcn_aggregate_fwd", layers)
+    expect("features", "rgcn_aggregate_bwd", layers)
+
+
+def run_cli_100k(raw_data, cwd):
+    """Phase 14: the port CLI on ml_100k's official split with side
+    features, on the card, in a subprocess."""
+    cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "ml_100k",
+           "--testing", "--ensemble", "--use-features", "--epochs", "2",
+           "--save-interval", "1"]
+    lines, err, _ = _subprocess(cmd, raw_data, cwd, "cli ml_100k")
+    want = "Using official MovieLens split u1.base/u1.test with 20% validation..."
+    if want not in lines:
+        fail(f"the ml_100k CLI did not print {want!r}")
+    feats = [l for l in lines if l.startswith("Number of user features")]
+    if len(feats) != 1:
+        fail("the ml_100k CLI did not print its features line")
+    if "extraction engine: native (backend auto)" not in err:
+        fail("the ml_100k CLI did not extract with the C++ engine")
+    for line in lines:
+        if line.startswith(("Using official", "Number of", "batch mode",
+                            "dense layout", "Epoch", "Ensemble")):
+            print(f"[cli ml_100k]   {line}")
+    log_path = os.path.join(cwd, "results", "ml_100k_testmode", "log.txt")
+    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
+    heads = ["Epoch 1,", "Epoch 2,", "Epoch ensemble of range(-28, 2, 10),"]
+    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
+        fail(f"the ml_100k CLI's log.txt reads {log}")
+    for line in log:
+        if not math.isfinite(float(line.split()[-1])):
+            fail(f"the ml_100k CLI's log.txt has a RMSE that is not finite: {line}")
+        print(f"[cli ml_100k] log.txt: {line}")
+    return os.path.join(cwd, "results", "ml_100k_testmode")
+
+
+def serving(split, cfg, ckpts, test_ds, dev):
+    """Phase 15: Predictor on ML-1M at full width from phase 10's
+    checkpoints; returns the timing table."""
+    import torch
+    from igmc_torch.batching import DeviceDataset
+    from igmc_torch.batching.dataset import _apply_max_num
+    from igmc_torch.models import IGMC
+    from igmc_torch.serve import Predictor
+    from igmc_torch.train import (DensePass, dense_predict_all, load_checkpoint,
+                                  make_eval_step, plan_buckets, test_once)
+
+    (us, vs), _ = _apply_max_num((split.test_u_indices, split.test_v_indices),
+                                 split.test_labels, MAX_NUM)
+    kw = dict(h=1, max_nodes_per_hop=100, batch_size=BATCH_SIZE)
+    t0 = time.perf_counter()
+    pred = Predictor(split.adj_train, split.class_values, cfg, checkpoints=ckpts,
+                     backend="native", device="cuda", **kw)
+    print(f"[serve] Predictor of {len(ckpts)} checkpoints on the card, engine "
+          f"{pred.engine}, built in {time.perf_counter() - t0:.2f} s")
+    if pred.engine != "native":
+        fail("the Predictor did not take the C++ extraction engine")
+    got = pred.predict(us, vs)
+
+    # test_once's dense unified ensemble on the same subgraphs
+    template = IGMC(cfg, torch.Generator().manual_seed(0))
+    rmse = test_once(test_ds, template, BATCH_SIZE, ensemble=True, checkpoints=ckpts,
+                     batch_mode="dense", dense_layout="unified", device="cuda")
+    dd = DeviceDataset(test_ds.packed, dev)
+    epoch = DensePass.plan(plan_buckets(test_ds, "unified"), BATCH_SIZE, 8, dev)
+    members = []
+    for c in ckpts:
+        m = IGMC(cfg, torch.Generator().manual_seed(0))
+        m.load_state_dict(load_checkpoint(c))
+        members.append(dense_predict_all(make_eval_step(m.to(dev).eval()), dd, epoch))
+    want = np.mean(members, axis=0)
+    ys = np.asarray(test_ds.packed.y, np.float32)
+    again = math.sqrt(float(np.mean((want - ys) ** 2)))
+    if abs(again - rmse) > 1e-5:
+        fail(f"serving: test_once's unified RMSE {rmse} != recomputed {again}")
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"served scores of shape {got.shape} or not finite")
+    diff = float(np.abs(got - want).max())
+    if not diff <= SERVE_ATOL:
+        fail(f"served scores differ from test_once's unified ensemble by {diff}")
+    served_rmse = math.sqrt(float(np.mean((got - ys) ** 2)))
+    print(f"[serve] {len(us)} held-out pairs: scores vs test_once's dense unified "
+          f"ensemble predictions max abs diff {diff:.3e} (atol {SERVE_ATOL}); RMSE "
+          f"{served_rmse:.6f} served, {rmse:.6f} test_once")
+
+    cpu = Predictor(split.adj_train, split.class_values, cfg, checkpoints=ckpts,
+                    backend="native", device="cpu", **kw)
+    diff = float(np.abs(cpu.predict(us[:200], vs[:200]) - got[:200]).max())
+    if not diff <= PRED_ATOL:
+        fail(f"served scores on the card differ from the CPU's by {diff}")
+    print(f"[serve] 200 pairs, card vs CPU Predictor: max abs diff {diff:.3e} "
+          f"(atol {PRED_ATOL})")
+
+    # a cold-start user: no training rating in the serving adjacency
+    cold_u = int(us[0])
+    adj = split.adj_train.tolil()
+    adj[cold_u, :] = 0
+    adj = adj.tocsr()
+    adj.eliminate_zeros()
+    cold = Predictor(adj, split.class_values, cfg, checkpoints=ckpts,
+                     backend="native", device="cuda", **kw)
+    score = cold.predict([cold_u, cold_u], [int(vs[0]), int(vs[1])])
+    if not np.isfinite(score).all():
+        fail(f"a cold-start pair scored {score}")
+    print(f"[serve] cold-start user {cold_u} (0 training ratings): scores {score}")
+    try:
+        pred.predict([0, split.adj_train.shape[0]], [0, 0])
+        fail("an out-of-range pair was scored")
+    except ValueError as e:
+        print(f"[serve] out-of-range pair refused: {e}")
+
+    ds = pred.subgraphs(us, vs)
+    r8 = lambda v: int(-(-int(v) // 8) * 8)
+    ladder = [(r8(np.median(ds.node_counts())), r8(np.median(ds.edge_counts() // 2))),
+              (r8(ds.node_counts().max()), r8((ds.edge_counts() // 2).max()))]
+    laddered = Predictor(split.adj_train, split.class_values, cfg, checkpoints=ckpts,
+                         backend="native", device="cuda", slot_ladder=ladder, **kw)
+    diff = float(np.abs(laddered.predict(us, vs) - got).max())
+    if not diff <= SERVE_ATOL:
+        fail(f"slot_ladder {ladder} changes the scores by {diff}")
+    print(f"[serve] slot_ladder {ladder}: same scores, max abs diff {diff:.3e}")
+
+    numpy_pred = Predictor(split.adj_train, split.class_values, cfg,
+                           checkpoints=ckpts, backend="numpy", device="cuda", **kw)
+    timings = {}
+    for engine, p in (("native", pred), ("numpy", numpy_pred)):
+        for n, reps in ((1, 20), (128, 5), (MAX_NUM, 3)):
+            host, device, total = [], [], []
+            for r in range(reps + 1):
+                sel = slice((r * n) % MAX_NUM, (r * n) % MAX_NUM + n)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sub = p.subgraphs(us[sel], vs[sel])
+                t1 = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                p.score(sub)
+                end.record()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if r:          # the first call warms up
+                    host.append(1e3 * (t1 - t0))
+                    device.append(start.elapsed_time(end))
+                    total.append(1e3 * (t2 - t0))
+            row = {k: float(np.median(v)) for k, v in
+                   (("host_ms", host), ("device_ms", device), ("total_ms", total))}
+            row["pairs_per_s"] = 1e3 * n / row["total_ms"]
+            timings[f"{engine}_{n}"] = row
+            print(f"[serve] {engine} engine, {n} pair(s) per call (median of "
+                  f"{reps}): {row['total_ms']:.3f} ms = host extraction "
+                  f"{row['host_ms']:.3f} ms + device part {row['device_ms']:.3f} ms "
+                  f"(CUDA events: upload, assembly, {len(ckpts)} members, fetch); "
+                  f"{row['pairs_per_s']:.1f} pairs/s")
+    _, busy_ms, window_ms = profile(lambda: pred.predict(us, vs),
+                                    "serving call (native engine)", f"{MAX_NUM} pairs")
+    timings["busy_share"] = busy_ms / window_ms
+    return timings
+
+
+def run_predict_cli(raw_data, cwd, results):
+    """Phase 16: the serving CLI on phase 14's results, in a subprocess;
+    its lines against an in-process Predictor's scores."""
+    from igmc_torch.data import load_official_trainvaltest_split
+    from igmc_torch.models import IGMCConfig
+    from igmc_torch.serve import Predictor
+
+    split = load_official_trainvaltest_split("ml_100k", testing=True)
+    us, vs = split.test_u_indices[:50], split.test_v_indices[:50]
+    pairs, out = os.path.join(cwd, "pairs.csv"), os.path.join(cwd, "preds.csv")
+    with open(pairs, "w") as f:
+        f.write("user,item\n" + "".join(f"{u},{v}\n" for u, v in zip(us, vs)))
+    cmd = [sys.executable, "-m", "igmc_torch.cli.predict", "--data-name", "ml_100k",
+           "--testing", "--results-dir", results, "--epochs", "2", "--ensemble",
+           "--use-features", "--pairs", pairs, "--out", out]
+    _, err, wall = _subprocess(cmd, raw_data, cwd, "cli predict")
+    rows = [l.split(",") for l in open(out).read().splitlines()]
+    if len(rows) != len(us):
+        fail(f"the serving CLI printed {len(rows)} lines for {len(us)} pairs")
+    uf, vf = split.u_features.toarray(), split.v_features.toarray()
+    cfg = IGMCConfig(num_relations=len(split.class_values), side_features=True,
+                     n_side_features=uf.shape[1] + vf.shape[1])
+    pred = Predictor.from_results_dir(results, split.adj_train, split.class_values,
+                                      cfg, epochs=2, interval=10, span=30,
+                                      max_nodes_per_hop=10000, u_features=uf,
+                                      v_features=vf, batch_size=128, device="cuda")
+    want = pred.predict(us, vs)
+    worst = 0.0
+    for (u, v, s), w, uu, vv in zip(rows, want, us, vs):
+        if (int(u), int(v)) != (int(uu), int(vv)):
+            fail(f"the serving CLI's line {u},{v} is not the pair {uu},{vv}")
+        worst = max(worst, abs(float(s) - float(w)))
+    if not worst <= 1e-6:
+        fail(f"the serving CLI's scores differ from the Predictor's by {worst}")
+    said = [l for l in err.splitlines() if l.startswith("ensemble of")]
+    print(f"[cli predict] {len(rows)} lines, {wall:.2f} s; scores vs an in-process "
+          f"Predictor: max abs diff {worst:.3e} (1e-6; printed %.6f); "
+          + "; ".join(said))
 
 
 def main() -> None:
@@ -823,7 +1096,7 @@ def main() -> None:
         load_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         kw = dict(h=1, max_nodes_per_hop=100, class_values=split.class_values,
-                  max_num=MAX_NUM)
+                  max_num=MAX_NUM, backend="native")
         test_ds = StaticGraphDataset(
             split.adj_train, (split.test_u_indices, split.test_v_indices),
             split.test_labels, **kw)
@@ -842,7 +1115,8 @@ def main() -> None:
         n_nodes = [int(b.node_mask.sum()) for b in batches]
         n_edges = [int(b.edge_mask.sum()) for b in batches]
         print(f"[data] ml_1m split {load_s:.2f} s; {len(test_ds)} test + "
-              f"{len(train_ds)} training pairs extracted in {extract_s:.2f} s; "
+              f"{len(train_ds)} training pairs extracted in {extract_s:.2f} s "
+              f"(C++ engine, its build included); "
               f"{len(batches)} test batches collated and planned in "
               f"{collate_s:.2f} s, {len(train_batches)} training batches with "
               f"both plans in {collate_train_s:.2f} s; test batches: mean "
@@ -1039,22 +1313,40 @@ def main() -> None:
 
         # ---- 10. dense training ----------------------------------------------
         with phase("dense training"):
-            dtrain = dense_train(cfg, train_ds, test_ds, work, dev, reset_counts,
-                                 read_counts, expect)
+            dtrain, dense_ckpts = dense_train(cfg, train_ds, test_ds, work, dev,
+                                              reset_counts, read_counts, expect)
 
         # ---- 11. card against CPU, dense ---------------------------------------
         with phase("card against CPU, dense"):
             card_vs_cpu_step(cfg, dtrain[0], "card vs CPU, dense")
 
-    # ---- 12. the CLI -----------------------------------------------------------
-    with phase("cli"):
-        run_cli(args.raw_data)
+        # ---- 12. the CLI -------------------------------------------------------
+        with phase("cli"):
+            run_cli(args.raw_data)
+
+        # ---- 13. side features, card against CPU ----------------------------------
+        with phase("features"):
+            features_phase(split, cfg, dev, reset_counts, read_counts, expect)
+
+        # ---- 14. ml_100k through the CLI --------------------------------------
+        cwd100k = os.path.join(work, "ml_100k_run")
+        os.makedirs(cwd100k)
+        with phase("cli ml_100k"):
+            results100k = run_cli_100k(args.raw_data, cwd100k)
+
+        # ---- 15. serving -------------------------------------------------------
+        with phase("serving"):
+            serve_times = serving(split, cfg, dense_ckpts, test_ds, dev)
+
+        # ---- 16. the serving CLI ------------------------------------------------
+        with phase("cli predict"):
+            run_predict_cli(args.raw_data, cwd100k, results100k)
 
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches["train"][name],
+            "launches": launches["train"][name] + launches["features"][name],
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": err, "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
@@ -1077,6 +1369,7 @@ def main() -> None:
     total = time.perf_counter() - phase.t0
     print(f"[time] total {total:.2f} s ("
           + ", ".join(f"{k} {v:.2f}" for k, v in phase.seconds.items()) + ")")
+    print(f"[serve] timings: {json.dumps(serve_times)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,6 +41,8 @@ class GraphBatch:
     graph_mask: torch.Tensor   # bool  [B]
     target_u: torch.Tensor     # int32 [B]   batch-local node idx of target user
     target_v: torch.Tensor     # int32 [B]   batch-local node idx of target item
+    u_feat: Optional[torch.Tensor] = None  # float32 [B, du] target-user features
+    v_feat: Optional[torch.Tensor] = None  # float32 [B, dv] target-item features
     # dst-block-aligned edges for the fused aggregate kernel
     # (kernels/rgcn_aggregate.py block_align_edges): (src, dst_local, etype,
     # mask, chunk_of_block, first_of_chunk, ukey), attached by BatchLoader;
@@ -138,6 +140,7 @@ def collate(
     graph_mask = np.zeros(B, dtype=bool)
     target_u = np.zeros(B, dtype=np.int32)
     target_v = np.zeros(B, dtype=np.int32)
+    u_feat, v_feat = _feature_tables(graphs, B)
 
     n_off = 0
     e_off = 0
@@ -163,6 +166,9 @@ def collate(
         graph_mask[gi] = True
         target_u[gi] = n_off            # target user is first user node
         target_v[gi] = n_off + g.num_u  # target item is first item node
+        if u_feat is not None:
+            u_feat[gi] = g.u_feat
+            v_feat[gi] = g.v_feat
         n_off += n
         e_off += 2 * ne
 
@@ -180,4 +186,15 @@ def collate(
         graph_mask=t(graph_mask),
         target_u=t(target_u),
         target_v=t(target_v),
+        u_feat=None if u_feat is None else t(u_feat),
+        v_feat=None if v_feat is None else t(v_feat),
     )
+
+
+def _feature_tables(graphs: Sequence[Subgraph], num_graphs: int):
+    """Zeroed float32 [num_graphs, du] / [num_graphs, dv] tables for the
+    graphs' side-feature rows, or (None, None) when they carry none."""
+    if not graphs or graphs[0].u_feat is None:
+        return None, None
+    return (np.zeros((num_graphs, graphs[0].u_feat.shape[0]), dtype=np.float32),
+            np.zeros((num_graphs, graphs[0].v_feat.shape[0]), dtype=np.float32))

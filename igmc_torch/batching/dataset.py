@@ -2,9 +2,12 @@
 
 Port of igmc_tpu/batching/dataset.py:
 
-  * StaticGraphDataset — extracts all subgraphs once and stores them in a
+  * StaticGraphDataset — extracts all subgraphs once, with the extraction
+    engine `backend` names (graphs/extract.py), and stores them in a
     packed structure-of-arrays (concatenated fields + offsets, compact and
-    O(1) to slice). The JAX package's .npz cache is not ported yet.
+    O(1) to slice; the side-feature rows of each graph's target user and
+    item as [G, du] / [G, dv] tables). The JAX package's .npz cache is not
+    ported.
   * BatchLoader — collates fixed-size padded flat batches on a geometric
     bucket ladder, in order or shuffled per epoch, and attaches the
     dst-block-aligned edge plan of the fused aggregate kernel with its
@@ -60,6 +63,10 @@ class _PackedGraphs:
         self.etype = cat("etype")
         self.num_u = np.array([g.num_u for g in graphs], dtype=np.int32)
         self.y = np.array([g.y for g in graphs], dtype=np.float32)
+        self.u_feat = self.v_feat = None
+        if n and graphs[0].u_feat is not None:
+            self.u_feat = np.stack([g.u_feat for g in graphs]).astype(np.float32)
+            self.v_feat = np.stack([g.v_feat for g in graphs]).astype(np.float32)
 
     def __len__(self):
         return len(self.y)
@@ -75,6 +82,8 @@ class _PackedGraphs:
             num_u=int(self.num_u[i]),
             num_v=int(ne - ns - self.num_u[i]),
             y=float(self.y[i]),
+            u_feat=self.u_feat[i] if self.u_feat is not None else None,
+            v_feat=self.v_feat[i] if self.v_feat is not None else None,
         )
 
     def node_counts(self) -> np.ndarray:
@@ -85,9 +94,20 @@ class _PackedGraphs:
         return 2 * np.diff(self.edge_offsets)
 
 
+def _densify(feat):
+    """A feature matrix (dense or scipy sparse) as float32 numpy, or None."""
+    if feat is None:
+        return None
+    if hasattr(feat, "toarray"):
+        return feat.toarray().astype(np.float32)
+    return np.asarray(feat, dtype=np.float32)
+
+
 class StaticGraphDataset:
     """Precomputed enclosing-subgraph dataset over a training adjacency
-    (scipy sparse, values = rating label + 1) and (u, v) links."""
+    (scipy sparse or BipartiteCSR, values = rating label + 1) and (u, v)
+    links; `u_features` / `v_features` (users x du, items x dv, dense or
+    sparse) give each graph its target rows."""
 
     def __init__(
         self,
@@ -97,16 +117,20 @@ class StaticGraphDataset:
         h: int = 1,
         sample_ratio: float = 1.0,
         max_nodes_per_hop: Optional[int] = None,
+        u_features=None,
+        v_features=None,
         class_values=None,
         max_num: Optional[int] = None,
         seed: int = 0,
+        backend: str = "auto",
     ):
         links, labels = _apply_max_num(links, labels, max_num)
         if not isinstance(A, BipartiteCSR):
             A = BipartiteCSR(A)
         self.packed = _PackedGraphs(extract_many(
             links, labels, A, h, sample_ratio, max_nodes_per_hop,
-            class_values, seed=seed))
+            _densify(u_features), _densify(v_features), class_values,
+            seed=seed, backend=backend))
 
     def __len__(self):
         return len(self.packed)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..graphs.extract import Subgraph
+from .batch import _feature_tables
 
 
 @dataclass
@@ -49,6 +50,8 @@ class DenseBatch:
     edge_mask: torch.Tensor    # bool  [B, E]
     y: torch.Tensor            # float32 [B] regression target
     graph_mask: torch.Tensor   # bool  [B]
+    u_feat: Optional[torch.Tensor] = None  # float32 [B, du] target-user features
+    v_feat: Optional[torch.Tensor] = None  # float32 [B, dv] target-item features
     num_u: Optional[int] = None            # bipartite user/item boundary
     edge_id: Optional[torch.Tensor] = None  # int64 [B, E] packed edge index
 
@@ -105,6 +108,7 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
     edge_mask = np.zeros((B, E), dtype=bool)
     y = np.zeros(B, dtype=np.float32)
     graph_mask = np.zeros(B, dtype=bool)
+    u_feat, v_feat = _feature_tables(graphs, B)
 
     for gi, g in enumerate(graphs):
         nn, ne = g.num_nodes, len(g.src)
@@ -133,6 +137,9 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
         edge_mask[gi, :ne] = True
         y[gi] = g.y
         graph_mask[gi] = True
+        if u_feat is not None:
+            u_feat[gi] = g.u_feat
+            v_feat[gi] = g.v_feat
     if num_u_slot is not None:
         edge_dst[~edge_mask] = num_u_slot   # a valid item row, masked out
 
@@ -140,7 +147,10 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
     return DenseBatch(node_label=t(node_label), edge_src=t(edge_src),
                       edge_dst=t(edge_dst), edge_type=t(edge_type),
                       node_mask=t(node_mask), edge_mask=t(edge_mask), y=t(y),
-                      graph_mask=t(graph_mask), num_u=num_u_slot)
+                      graph_mask=t(graph_mask),
+                      u_feat=None if u_feat is None else t(u_feat),
+                      v_feat=None if v_feat is None else t(v_feat),
+                      num_u=num_u_slot)
 
 
 def _round8(v: int) -> int:

@@ -34,7 +34,8 @@ def _compact_int(a: np.ndarray) -> np.ndarray:
 class DeviceDataset:
     """The packed subgraph tables (batching/dataset.py _PackedGraphs) on
     `device`: node labels, graph-local src/dst and edge types compacted to
-    the narrowest lossless integer type, int64 offsets, num_u and y."""
+    the narrowest lossless integer type, int64 offsets, num_u and y, and
+    the side-feature tables when the graphs carry them (else None)."""
 
     def __init__(self, packed, device="cuda"):
         self.device = resolve_device(device)
@@ -47,6 +48,10 @@ class DeviceDataset:
         self.edge_off = put(packed.edge_offsets.astype(np.int64))
         self.num_u = put(packed.num_u.astype(np.int64))
         self.y = put(packed.y.astype(np.float32))
+        self.u_feat = (None if packed.u_feat is None
+                       else put(packed.u_feat.astype(np.float32)))
+        self.v_feat = (None if packed.v_feat is None
+                       else put(packed.v_feat.astype(np.float32)))
         self.num_graphs = len(packed)
 
     def __len__(self):
@@ -57,7 +62,8 @@ def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,
                    edge_slot: int, num_u_slot: Optional[int] = None) -> DenseBatch:
     """One DenseBatch on dd's device from graph ids `gids` [B] (int64 on
     that device; -1 = a padding graph), with the rows of collate_dense:
-    unified (slot_perm's rows) or, with `num_u_slot`, bipartite. Also sets
+    unified (slot_perm's rows) or, with `num_u_slot`, bipartite, and the
+    graphs' side-feature rows (zero for padding graphs). Also sets
     `edge_id`, the packed index of each stored edge."""
     n, E = node_slot, edge_slot
     dev = dd.device
@@ -96,9 +102,11 @@ def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,
     node_label = torch.where(nvalid, dd.node_label[nidx].int(), 0)
     edge_type = torch.where(evalid, dd.etype[epos].int(), 0)
     y = torch.where(gmask, dd.y[g], 0.0)
+    feat = lambda table: None if table is None else table[g] * gmask[:, None]
     return DenseBatch(node_label=node_label, edge_src=edge_src.int(),
                       edge_dst=edge_dst.int(), edge_type=edge_type,
                       node_mask=nvalid, edge_mask=evalid, y=y, graph_mask=gmask,
+                      u_feat=feat(dd.u_feat), v_feat=feat(dd.v_feat),
                       num_u=None if num_u_slot is None else int(num_u_slot),
                       edge_id=epos)
 

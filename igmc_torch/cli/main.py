@@ -5,23 +5,26 @@
 
 Port of igmc_tpu/cli/main.py: the same argparse surface and defaults
 (plus `--device`, the counterpart of JAX's platform selection; default the
-CUDA card, which must be present), rating_maps, the ml_1m split, static
+CUDA card, which must be present), rating_maps, the MovieLens splits
+(ml_100k's official u1.base / u1.test split, the random split of ml_1m and
+ml_10m, ml_25m's time split), side features (`--use-features`), the
+extraction engines (`--extract-backend auto|numpy|native`), static
 datasets, the IGMC model, and main's batch-mode and dense-layout rules,
 training, `--ensemble` and `--transfer`, with the same printed lines and
 `log.txt` lines. `--flat-aggregate pallas` runs the flat layout through
 the fused aggregate kernels.
 
 Flags whose code is not ported yet exit with a message naming the flag:
-`--parallel ep`, `--n-devices` > 1, `--dynamic-*`, `--use-features`,
-`--dense-chunk`, `--compute-dtype bfloat16`, `--dense-strategy
-adjacency`, `--visualize`, `--profile-dir`, `--extract-backend native`,
-models other than igmc, the segment and blocked flat engines, and
-datasets other than ml_1m. Datasets are held in memory: the JAX package's
-`.npz` subgraph cache and split pickle are not ported, so `--reprocess`
-and `--data-appendix` change nothing. `--compilation-cache-dir`,
-`--conv-strategy` and `--ep-local-aggregate` are accepted and change
-nothing here (the port compiles no XLA programs, and the other two
-select engines of paths not ported).
+`--parallel ep`, `--n-devices` > 1, `--dynamic-*`, `--dense-chunk`,
+`--compute-dtype bfloat16`, `--dense-strategy adjacency`, `--visualize`
+(it draws with matplotlib), `--profile-dir`, models other than igmc, and
+the segment and blocked flat engines; the Monti datasets (flixster,
+douban, yahoo_music) exit naming why. Datasets are held in memory: the
+JAX package's `.npz` subgraph cache and split pickle are not ported, so
+`--reprocess` and `--data-appendix` change nothing.
+`--compilation-cache-dir`, `--conv-strategy` and `--ep-local-aggregate`
+are accepted and change nothing here (the port compiles no XLA programs,
+and the other two select engines of paths not ported).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-test-num", type=int, default=None)
     p.add_argument("--seed", type=int, default=1, metavar="S")
     p.add_argument("--data-seed", type=int, default=1234, metavar="S",
-                   help="data shuffle seed (ml_1m)")
+                   help="data shuffle seed (ml_1m, ml_10m)")
     p.add_argument("--reprocess", action="store_true", default=False,
                    help="reprocess data (there is no cache to reuse here)")
     p.add_argument("--dynamic-train", action="store_true", default=False)
@@ -107,7 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-device strategy with --n-devices > 1")
     p.add_argument("--extract-backend", default="auto",
                    choices=["auto", "numpy", "native"],
-                   help="subgraph extraction engine (numpy only so far)")
+                   help="subgraph extraction engine: the C++ engine "
+                        "(native, built with g++ on first use), NumPy, or "
+                        "auto = native if it builds, else numpy")
     p.add_argument("--profile-dir", default="",
                    help="profiler trace of one epoch (not ported yet)")
     p.add_argument("--compilation-cache-dir",
@@ -160,13 +165,11 @@ def unported_flags(args) -> list:
         (args.n_devices > 1, f"--n-devices {args.n_devices}"),
         (args.dynamic_train or args.dynamic_test or args.dynamic_val
          or args.dynamic_dataset, "--dynamic-*"),
-        (args.use_features, "--use-features"),
         (args.dense_chunk != 0, "--dense-chunk"),
         (args.compute_dtype != "float32", f"--compute-dtype {args.compute_dtype}"),
         (args.dense_strategy == "adjacency", "--dense-strategy adjacency"),
-        (args.visualize, "--visualize"),
+        (args.visualize, "--visualize (it draws with matplotlib)"),
         (bool(args.profile_dir), "--profile-dir"),
-        (args.extract_backend == "native", "--extract-backend native"),
         (args.model != "igmc", f"--model {args.model}"),
         (args.flat_aggregate in ("segment", "blocked"),
          f"--flat-aggregate {args.flat_aggregate}"),
@@ -203,24 +206,48 @@ def rating_maps(args):
 
 
 def load_split(args, rating_map, post_rating_map):
-    """The ml_1m random split; other datasets exit naming what is missing."""
-    from ..data import create_trainvaltest_split
+    """ml_100k's official split, or the random (ml_1m, ml_10m) or time
+    (ml_25m) split; the Monti datasets exit naming why."""
+    from ..data import (create_trainvaltest_split,
+                        load_official_trainvaltest_split)
 
-    if args.data_name != "ml_1m":
+    if args.data_name in ("flixster", "douban", "yahoo_music"):
         raise SystemExit(
-            f"--data-name {args.data_name}: igmc_torch loads ml_1m only; the "
-            f"loaders of ml_100k, ml_10m, ml_25m and the Monti .mat datasets "
-            f"(flixster, douban, yahoo_music) are not ported yet")
+            f"--data-name {args.data_name}: the Monti loaders (flixster, "
+            f"douban, yahoo_music) are not ported to igmc_torch yet: their "
+            f"MATLAB v7.3 .mat files are not in the repository and the port "
+            f"has no reader for them without h5py")
+    if args.data_name == "ml_100k":
+        print("Using official MovieLens split u1.base/u1.test with 20% validation...")
+        return load_official_trainvaltest_split(
+            args.data_name, args.testing, rating_map, post_rating_map, args.ratio)
     return create_trainvaltest_split(args.data_name, args.data_seed, args.testing,
                                      True, rating_map, post_rating_map, args.ratio)
 
 
+def side_features(args, split, verbose: bool = True):
+    """(u_features, v_features, n_features): the split's feature matrices
+    densified with --use-features, printing the JAX CLI's line when
+    `verbose`; else (None, None, 0)."""
+    if not args.use_features:
+        return None, None, 0
+    u_features = split.u_features.toarray()
+    v_features = split.v_features.toarray()
+    n_features = u_features.shape[1] + v_features.shape[1]
+    if verbose:
+        print("Number of user features {}, item features {}, total features {}"
+              .format(u_features.shape[1], v_features.shape[1], n_features))
+    return u_features, v_features, n_features
+
+
 def build_datasets(args, split):
-    """(train, val, test) static datasets, held in memory; in valmode the
-    validation set is also the test set, as in the JAX CLI."""
+    """(train, val, test) static datasets, held in memory, and the number
+    of side features; in valmode the validation set is also the test set,
+    as in the JAX CLI."""
     from ..batching import StaticGraphDataset
     from ..graphs import BipartiteCSR
 
+    u_features, v_features, n_features = side_features(args, split)
     tr_u, tr_v = split.train_u_indices, split.train_v_indices
     va_u, va_v = split.val_u_indices, split.val_v_indices
     te_u, te_v = split.test_u_indices, split.test_v_indices
@@ -235,7 +262,9 @@ def build_datasets(args, split):
     A = BipartiteCSR(split.adj_train)
     mnph = args.max_nodes_per_hop if args.max_nodes_per_hop > 0 else None
     common = dict(h=args.hop, sample_ratio=args.sample_ratio,
-                  max_nodes_per_hop=mnph, class_values=split.class_values)
+                  max_nodes_per_hop=mnph, u_features=u_features,
+                  v_features=v_features, class_values=split.class_values,
+                  backend=args.extract_backend)
     train_graphs = StaticGraphDataset(A, (tr_u, tr_v), tr_l,
                                       max_num=args.max_train_num, **common)
     test_graphs = StaticGraphDataset(A, (te_u, te_v), te_l,
@@ -247,10 +276,10 @@ def build_datasets(args, split):
         test_graphs = val_graphs  # evaluate on val in valmode
     print("Used #train graphs: %d, #test graphs: %d"
           % (len(train_graphs), len(test_graphs)))
-    return train_graphs, val_graphs, test_graphs
+    return train_graphs, val_graphs, test_graphs, n_features
 
 
-def build_model(args, split):
+def build_model(args, split, n_features=0):
     """Full-width IGMC, initialised from a generator seeded with --seed."""
     import torch
 
@@ -264,6 +293,8 @@ def build_model(args, split):
                      num_relations=num_relations, num_bases=args.num_bases,
                      adj_dropout=args.adj_dropout,
                      force_undirected=args.force_undirected,
+                     side_features=args.use_features,
+                     n_side_features=n_features,
                      multiply_by=multiply_by, aggr=args.aggr)
     model = IGMC(cfg, torch.Generator().manual_seed(args.seed))
     print(f"Total number of parameters is "
@@ -324,8 +355,8 @@ def main(argv=None):
     if not args.keep_old and not args.transfer:
         res.snapshot_source()
 
-    train_graphs, _, test_graphs = build_datasets(args, split)
-    model = build_model(args, split)
+    train_graphs, _, test_graphs, n_features = build_datasets(args, split)
+    model = build_model(args, split, n_features)
     logger = make_logger(res, args.save_interval)
     batch_mode, flat_aggregate, dense_layout = choose_layouts(args, train_graphs)
     if args.n_devices == 1:

@@ -1,25 +1,35 @@
 """Train/val/test split construction and training-adjacency assembly.
 
-Port of igmc_tpu/data/splits.py (SplitData, _adjacency_values and
-create_trainvaltest_split, without its pickle cache), keeping the
-conventions RMSE parity depends on:
+Port of igmc_tpu/data/splits.py (SplitData, _adjacency_values,
+_carve_and_build, load_official_trainvaltest_split and
+create_trainvaltest_split with the ml_25m time split, without the split
+pickle cache), keeping the conventions RMSE parity depends on:
 
   * `class_values` = sorted unique original ratings; labels index into it.
   * The training adjacency stores `label + 1` so 0 can mean "no rating".
   * `testing=True` folds the validation links into the training set.
   * `rating_map` rebuckets raw ratings before label construction;
     `post_rating_map` rebuckets only the adjacency edge types.
+  * The official split shuffles its training links with the stream of
+    np.random.seed(42) (a private RandomState(42) here, which draws the
+    same permutation and leaves the global stream alone).
+
+The Monti loaders (load_data_monti) are not ported: their .mat files are
+MATLAB v7.3, which the JAX package reads through h5py.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
 
-from .loaders import load_data
+from .loaders import (_movie_genre_features_100k, _movie_genre_features_1m,
+                      _read_numeric, _user_features_100k, _user_features_1m,
+                      load_data, map_data, raw_data_dir)
 
 
 @dataclass
@@ -50,6 +60,149 @@ def _adjacency_values(labels_in_adj, class_values, post_rating_map):
     ).astype(np.float32)
 
 
+def _carve_and_build(labels, idx_nonzero_train, pairs_nonzero_train,
+                     idx_nonzero_test, pairs_nonzero_test,
+                     num_train, num_val, num_test, testing,
+                     class_values, post_rating_map, num_users, num_items):
+    """The split tail of the official loader: the seed-42 shuffle of the
+    training links, the validation carve, the testing-mode fold of the
+    validation links, and the training adjacency (label + 1, optionally
+    post_rating_map-rebucketed).
+
+    Returns (train_labels, u_train, v_train, val_labels, u_val, v_val,
+    test_labels, u_test, v_test, rating_mx_train)."""
+    rand_idx = list(range(len(idx_nonzero_train)))
+    np.random.RandomState(42).shuffle(rand_idx)
+    idx_nonzero_train = idx_nonzero_train[rand_idx]
+    pairs_nonzero_train = pairs_nonzero_train[rand_idx]
+
+    idx_nonzero = np.concatenate([idx_nonzero_train, idx_nonzero_test], axis=0)
+    pairs_nonzero = np.concatenate([pairs_nonzero_train, pairs_nonzero_test], axis=0)
+
+    val_idx = idx_nonzero[0:num_val]
+    train_idx = idx_nonzero[num_val : num_train + num_val]
+    test_idx = idx_nonzero[num_train + num_val :]
+    if len(test_idx) != num_test:
+        raise ValueError(f"{len(test_idx)} test links, expected {num_test}")
+
+    val_pairs_idx = pairs_nonzero[0:num_val]
+    train_pairs_idx = pairs_nonzero[num_val : num_train + num_val]
+    test_pairs_idx = pairs_nonzero[num_train + num_val :]
+
+    u_test_idx, v_test_idx = test_pairs_idx.transpose()
+    u_val_idx, v_val_idx = val_pairs_idx.transpose()
+    u_train_idx, v_train_idx = train_pairs_idx.transpose()
+
+    train_labels = labels[train_idx]
+    val_labels = labels[val_idx]
+    test_labels = labels[test_idx]
+
+    if testing:
+        u_train_idx = np.hstack([u_train_idx, u_val_idx])
+        v_train_idx = np.hstack([v_train_idx, v_val_idx])
+        train_labels = np.hstack([train_labels, val_labels])
+        train_idx = np.hstack([train_idx, val_idx])
+
+    rating_mx_train = np.zeros(num_users * num_items, dtype=np.float32)
+    rating_mx_train[train_idx] = _adjacency_values(
+        labels[train_idx], class_values, post_rating_map)
+    rating_mx_train = sp.csr_matrix(rating_mx_train.reshape(num_users, num_items))
+
+    return (train_labels, u_train_idx, v_train_idx,
+            val_labels, u_val_idx, v_val_idx,
+            test_labels, u_test_idx, v_test_idx, rating_mx_train)
+
+
+def load_official_trainvaltest_split(
+    dataset: str,
+    testing: bool = False,
+    rating_map=None,
+    post_rating_map=None,
+    ratio: float = 1.0,
+) -> SplitData:
+    """The official u1.base / u1.test split (ml_100k) with 20% of the
+    training links as validation; `ratio` < 1 keeps the earliest training
+    ratings by timestamp. Side features come with it (ml_100k's age
+    normalised by the oldest user's)."""
+    data_dir = os.path.join(raw_data_dir(), dataset)
+    data_array_train = _read_numeric(os.path.join(data_dir, "u1.base"), " ", 4)
+    data_array_test = _read_numeric(os.path.join(data_dir, "u1.test"), " ", 4)
+
+    if ratio < 1.0:
+        data_array_train = data_array_train[
+            data_array_train[:, -1].argsort()[: int(ratio * len(data_array_train))]
+        ]
+
+    data_array = np.concatenate([data_array_train, data_array_test], axis=0)
+    u_nodes_ratings = data_array[:, 0].astype(np.int32)
+    v_nodes_ratings = data_array[:, 1].astype(np.int32)
+    ratings = data_array[:, 2].astype(np.float32)
+    if rating_map is not None:
+        for i, x in enumerate(ratings):
+            ratings[i] = rating_map[x]
+
+    u_nodes_ratings, u_dict, num_users = map_data(u_nodes_ratings)
+    v_nodes_ratings, v_dict, num_items = map_data(v_nodes_ratings)
+    u_nodes = u_nodes_ratings.astype(np.int64)
+    v_nodes = v_nodes_ratings.astype(np.int32)
+    ratings = ratings.astype(np.float64)
+
+    rating_dict = {r: i for i, r in enumerate(np.sort(np.unique(ratings)).tolist())}
+    labels = np.full((num_users, num_items), -1, dtype=np.int32)
+    labels[u_nodes, v_nodes] = np.array([rating_dict[r] for r in ratings])
+    labels = labels.reshape(-1)
+
+    num_train = data_array_train.shape[0]
+    num_test = data_array_test.shape[0]
+    num_val = int(np.ceil(num_train * 0.2))
+    num_train = num_train - num_val
+
+    pairs_nonzero = np.stack([u_nodes, v_nodes.astype(np.int64)], axis=1)
+    idx_nonzero = pairs_nonzero[:, 0] * num_items + pairs_nonzero[:, 1]
+
+    idx_nonzero_train = idx_nonzero[0 : num_train + num_val]
+    idx_nonzero_test = idx_nonzero[num_train + num_val :]
+    pairs_nonzero_train = pairs_nonzero[0 : num_train + num_val]
+    pairs_nonzero_test = pairs_nonzero[num_train + num_val :]
+
+    class_values = np.sort(np.unique(ratings))
+
+    (train_labels, u_train_idx, v_train_idx,
+     val_labels, u_val_idx, v_val_idx,
+     test_labels, u_test_idx, v_test_idx, rating_mx_train) = _carve_and_build(
+        labels, idx_nonzero_train, pairs_nonzero_train,
+        idx_nonzero_test, pairs_nonzero_test,
+        num_train, num_val, num_test, testing,
+        class_values, post_rating_map, num_users, num_items,
+    )
+
+    if dataset == "ml_100k":
+        v_features = _movie_genre_features_100k(data_dir, v_dict, num_items)
+        u_features = _user_features_100k(data_dir, u_dict, num_users,
+                                         normalize_age=True)
+    elif dataset == "ml_1m":
+        v_features = _movie_genre_features_1m(data_dir, v_dict, num_items)
+        u_features = _user_features_1m(data_dir, u_dict, num_users)
+    else:
+        raise ValueError(f"Invalid dataset option {dataset}")
+
+    return SplitData(
+        u_features=sp.csr_matrix(u_features),
+        v_features=sp.csr_matrix(v_features),
+        adj_train=rating_mx_train,
+        train_labels=train_labels,
+        train_u_indices=u_train_idx,
+        train_v_indices=v_train_idx,
+        val_labels=val_labels,
+        val_u_indices=u_val_idx,
+        val_v_indices=v_val_idx,
+        test_labels=test_labels,
+        test_u_indices=u_test_idx,
+        test_v_indices=v_test_idx,
+        class_values=class_values,
+    )
+
+
 def create_trainvaltest_split(
     dataset: str,
     seed: int = 1234,
@@ -59,8 +212,9 @@ def create_trainvaltest_split(
     post_rating_map=None,
     ratio: float = 1.0,
 ) -> SplitData:
-    """Random 80/10/10-style split (ml_1m): the shuffled ratings are cut
-    into train, validation (5% of the non-test part) and test (10%)."""
+    """Random split (ml_1m, ml_10m): the shuffled ratings are cut into
+    train, validation (5% of the non-test part) and test (10%); ml_25m's
+    time-ordered ratings are cut 70 / 10 / 20 in order."""
     (num_users, num_items, u_nodes, v_nodes, ratings,
      u_features, v_features) = load_data(dataset, seed=seed, verbose=verbose)
 
@@ -68,10 +222,16 @@ def create_trainvaltest_split(
         for i, x in enumerate(ratings):
             ratings[i] = rating_map[x]
 
-    print("Using random dataset split ...")
-    num_test = int(np.ceil(ratings.shape[0] * 0.1))
-    num_val = int(np.ceil(ratings.shape[0] * 0.9 * 0.05))
-    num_train = ratings.shape[0] - num_val - num_test
+    if dataset == "ml_25m":
+        print("Split dataset into train/val/test by time ...")
+        num_train = int(ratings.shape[0] * 0.7)
+        num_val = int(ratings.shape[0] * 0.8) - num_train
+        num_test = ratings.shape[0] - num_train - num_val
+    else:
+        print("Using random dataset split ...")
+        num_test = int(np.ceil(ratings.shape[0] * 0.1))
+        num_val = int(np.ceil(ratings.shape[0] * 0.9 * 0.05))
+        num_train = ratings.shape[0] - num_val - num_test
 
     pairs_nonzero = np.vstack([u_nodes, v_nodes]).transpose()
 

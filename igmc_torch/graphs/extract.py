@@ -11,12 +11,16 @@ Port of igmc_tpu/graphs/extract.py:
     this label (dimension 2h+2) is the node feature.
   * edge types are rating labels (adjacency stores label+1; we subtract 1).
   * y = class_values[label] — the original continuous rating.
+  * optional side features: only the target user / target item rows.
 
-Subsampling draws from a per-link NumPy stream keyed by
-SeedSequence([seed, link index]), so results do not depend on worker
-count or order. The JAX package's C++ engine draws different streams when
-subsampling binds; it is not ported yet, so this engine matches the JAX
-package's `backend="numpy"`. Side features are not ported yet.
+`extract_many` runs this NumPy engine or the C++ engine
+(graphs/native.py), as `backend` says: "numpy", "native" (raises if the
+engine cannot be built or loaded) or "auto" (native if it builds, else
+NumPy; the JAX package's default). The NumPy engine draws its subsampling
+from a per-link stream keyed by SeedSequence([seed, stream id]), the C++
+engine from its own per-link xoshiro stream: without subsampling both
+give identical subgraphs, and when `max_nodes_per_hop` or `sample_ratio`
+binds, each gives the JAX package's engine of the same name.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ class Subgraph:
     num_u: int               # number of user nodes
     num_v: int               # number of item nodes
     y: float                 # regression target (original rating value)
+    u_feat: Optional[np.ndarray] = None  # float32 [du] target-user side features
+    v_feat: Optional[np.ndarray] = None  # float32 [dv] target-item side features
 
     @property
     def num_nodes(self) -> int:
@@ -76,6 +82,8 @@ def extract_subgraph(
     h: int = 1,
     sample_ratio: float = 1.0,
     max_nodes_per_hop: Optional[int] = None,
+    u_features: Optional[np.ndarray] = None,
+    v_features: Optional[np.ndarray] = None,
     class_values: Optional[np.ndarray] = None,
     label: int = 1,
     rng: Optional[np.random.Generator] = None,
@@ -139,6 +147,7 @@ def extract_subgraph(
     etype = (r - 1.0).astype(np.int32)  # adjacency stores label + 1
     node_label = np.concatenate([u_dist * 2, v_dist * 2 + 1]).astype(np.int32)
     y = float(class_values[label]) if class_values is not None else float(label)
+    u_feat, v_feat = side_features(u, v, u_features, v_features)
 
     return Subgraph(
         src=src.astype(np.int32),
@@ -148,7 +157,18 @@ def extract_subgraph(
         num_u=num_u,
         num_v=num_v,
         y=y,
+        u_feat=u_feat,
+        v_feat=v_feat,
     )
+
+
+def side_features(u: int, v: int, u_features, v_features):
+    """The target user's and target item's feature rows as float32 vectors,
+    or (None, None) unless both feature matrices are given."""
+    if u_features is None or v_features is None:
+        return None, None
+    return (np.asarray(u_features[u]).reshape(-1).astype(np.float32),
+            np.asarray(v_features[v]).reshape(-1).astype(np.float32))
 
 
 def extract_many(
@@ -158,20 +178,33 @@ def extract_many(
     h: int = 1,
     sample_ratio: float = 1.0,
     max_nodes_per_hop: Optional[int] = None,
+    u_features: Optional[np.ndarray] = None,
+    v_features: Optional[np.ndarray] = None,
     class_values: Optional[np.ndarray] = None,
     seed: int = 0,
+    backend: str = "auto",
+    indices: Optional[np.ndarray] = None,
 ):
-    """Extract enclosing subgraphs for every (u, v) link.
+    """Extract enclosing subgraphs for every (u, v) link with the engine
+    `backend` names ("auto", "numpy" or "native"; see the module doc).
 
-    Deterministic: link i draws from the stream SeedSequence([seed, i])."""
+    Deterministic: link i draws from the stream keyed by (seed, stream id),
+    the stream id being `indices[i]` when given and i otherwise."""
+    from . import native
+
+    if native.resolve_backend(backend) == "native":
+        return native.extract_many_native(
+            links, labels, A, h, sample_ratio, max_nodes_per_hop,
+            u_features, v_features, class_values, seed, indices=indices)
     us, vs = links
     out = []
     for i in range(len(us)):
-        rng = np.random.default_rng(np.random.SeedSequence([seed, i]))
+        sid = int(indices[i]) if indices is not None else i
+        rng = np.random.default_rng(np.random.SeedSequence([seed, sid]))
         out.append(
             extract_subgraph(
                 int(us[i]), int(vs[i]), A, h, sample_ratio, max_nodes_per_hop,
-                class_values, int(labels[i]), rng,
+                u_features, v_features, class_values, int(labels[i]), rng,
             )
         )
     return out

@@ -13,14 +13,17 @@ feature dropout 0.5 in training, and lin2, times `multiply_by`.
     0 and 1 (unified) or 0 and num_u (bipartite); aggr mean, sum or
     relmean.
 
+With `side_features`, the batch's target-user and target-item feature
+rows are concatenated after the target states, so lin1 takes
+2 * sum(latent) + n_side_features inputs.
+
 In training mode the forward takes its noise from the caller,
 (edge_noise, feature_keep) from `draw_noise`: edge_noise is a seed for
 the hash edge dropout (flat: keyed on the plans' ukey stream, folded into
 both plans' masks; dense: keyed on the batch's packed edge ids), and
 feature_keep is lin1's dropout mask. A dense forward also takes
 edge_noise as a pair of [B, E] keep masks (forward, reverse), so that
-tests can feed it the JAX package's masks. Side features belong to a
-later slice.
+tests can feed it the JAX package's masks.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ class IGMCConfig:
     num_bases: int = 4
     adj_dropout: float = 0.2
     force_undirected: bool = False
+    side_features: bool = False
+    n_side_features: int = 0               # du + dv when side_features
     multiply_by: float = 1.0
     aggr: str = "mean"                     # mean/sum (flat), mean/sum/relmean (dense)
 
@@ -81,7 +86,8 @@ class IGMC(nn.Module):
                                   cfg.num_bases, generator))
             in_dim = out_dim
         self.convs = nn.ModuleList(convs)
-        self.lin1 = _linear(2 * sum(cfg.latent_dim), HIDDEN, generator)
+        n_side = cfg.n_side_features if cfg.side_features else 0
+        self.lin1 = _linear(2 * sum(cfg.latent_dim) + n_side, HIDDEN, generator)
         self.lin2 = _linear(HIDDEN, 1, generator)
 
     def forward(self, batch, noise=None) -> torch.Tensor:
@@ -97,6 +103,12 @@ class IGMC(nn.Module):
             states = self._dense_states(batch, edge_noise)
         else:
             states = self._flat_states(batch, edge_noise)
+        if self.cfg.side_features:
+            if batch.u_feat is None or batch.v_feat is None:
+                raise ValueError("side_features: the batch carries no u_feat / "
+                                 "v_feat (build the dataset with u_features and "
+                                 "v_features)")
+            states = torch.cat([states, batch.u_feat, batch.v_feat], dim=1)
         h = F.relu(self.lin1(states))
         if self.training:
             h = feature_dropout(h, feature_keep, FEATURE_DROPOUT)

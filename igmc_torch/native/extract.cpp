@@ -1,0 +1,267 @@
+// Native enclosing-subgraph extraction engine (a copy of the JAX
+// package's igmc_tpu/native/extract.cpp; built and bound by
+// igmc_torch/native/build.py and igmc_torch/graphs/native.py).
+//
+// A multithreaded C++ CSR walker. Semantics match
+// igmc_torch/graphs/extract.py: h-hop alternating BFS, sorted-unique
+// fringes, per-hop sample_ratio / max_nodes_per_hop subsampling,
+// target-edge removal, 2d/2d+1 hop/side labels, edge types = adjacency
+// value - 1.
+//
+// Determinism: each link uses an xoshiro256** stream seeded by
+// splitmix64(seed, stream_id) — stream_id defaults to the link's position
+// but callers may pass global dataset indices — independent of thread
+// count/scheduling. (The NumPy engine uses NumPy's Generator for
+// subsampling, so sampled extractions differ between engines by RNG
+// stream only — unsampled extractions are bit-identical.)
+//
+// Memory: per-thread epoch-stamped scratch arrays (no clearing between
+// links); results land in per-link vectors gathered into one packed
+// structure-of-arrays matching batching/dataset.py _PackedGraphs.
+//
+// C ABI (ctypes-friendly), two-phase: run -> query sizes -> fill -> free.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+namespace {
+
+struct Xoshiro {
+  uint64_t s[4];
+  static uint64_t splitmix64(uint64_t& x) {
+    uint64_t z = (x += 0x9e3779b97f4a7c15ULL);
+    z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+    z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+    return z ^ (z >> 31);
+  }
+  explicit Xoshiro(uint64_t seed) {
+    for (int i = 0; i < 4; ++i) s[i] = splitmix64(seed);
+  }
+  static uint64_t rotl(uint64_t x, int k) { return (x << k) | (x >> (64 - k)); }
+  uint64_t next() {
+    uint64_t result = rotl(s[1] * 5, 7) * 9;
+    uint64_t t = s[1] << 17;
+    s[2] ^= s[0]; s[3] ^= s[1]; s[1] ^= s[2]; s[0] ^= s[3];
+    s[2] ^= t; s[3] = rotl(s[3], 45);
+    return result;
+  }
+  // unbiased bounded draw (Lemire)
+  uint64_t bounded(uint64_t n) {
+    uint64_t x = next();
+    __uint128_t m = (__uint128_t)x * n;
+    uint64_t l = (uint64_t)m;
+    if (l < n) {
+      uint64_t t = (0 - n) % n;
+      while (l < t) { x = next(); m = (__uint128_t)x * n; l = (uint64_t)m; }
+    }
+    return (uint64_t)(m >> 64);
+  }
+};
+
+struct SubgraphOut {
+  std::vector<int32_t> src, dst, etype, node_label;
+  int32_t num_u = 0, num_v = 0;
+};
+
+struct Csr {
+  const int64_t* indptr;
+  const int32_t* indices;
+  const float* data;
+  int64_t n;
+};
+
+struct Engine {
+  Csr rows, cols;  // users->items, items->users
+  int h;
+  double sample_ratio;
+  int64_t max_nodes_per_hop;
+  uint64_t seed;
+  std::vector<SubgraphOut> out;
+};
+
+// Per-thread scratch with epoch stamping.
+struct Scratch {
+  std::vector<int64_t> u_stamp, v_stamp;   // visited epoch per global node
+  std::vector<int32_t> v_local;            // item -> local index (stamped)
+  std::vector<int64_t> v_local_stamp;
+  int64_t epoch = 0;
+  Scratch(int64_t nu, int64_t nv)
+      : u_stamp(nu, -1), v_stamp(nv, -1), v_local(nv, -1),
+        v_local_stamp(nv, -1) {}
+};
+
+void subsample(std::vector<int32_t>& fringe, double ratio, int64_t cap,
+               Xoshiro& rng) {
+  size_t keep = fringe.size();
+  if (ratio < 1.0) keep = (size_t)(ratio * fringe.size());
+  if (cap >= 0 && (size_t)cap < keep) keep = (size_t)cap;
+  if (keep >= fringe.size()) return;
+  // partial Fisher-Yates, then restore sorted order (matches sorted-unique
+  // fringe semantics of the NumPy path up to which elements survive)
+  for (size_t i = 0; i < keep; ++i) {
+    size_t j = i + (size_t)rng.bounded(fringe.size() - i);
+    std::swap(fringe[i], fringe[j]);
+  }
+  fringe.resize(keep);
+  std::sort(fringe.begin(), fringe.end());
+}
+
+void extract_one(const Engine& eng, Scratch& sc, int64_t link_u,
+                 int64_t link_v, uint64_t rng_seed, SubgraphOut& out) {
+  Xoshiro rng(rng_seed);
+  const int64_t ep = ++sc.epoch;
+
+  std::vector<int32_t> u_nodes{(int32_t)link_u}, v_nodes{(int32_t)link_v};
+  std::vector<int32_t> u_dist{0}, v_dist{0};
+  sc.u_stamp[link_u] = ep;
+  sc.v_stamp[link_v] = ep;
+  std::vector<int32_t> u_fringe{(int32_t)link_u}, v_fringe{(int32_t)link_v};
+  std::vector<int32_t> new_u, new_v;
+
+  for (int dist = 1; dist <= eng.h; ++dist) {
+    new_v.clear();
+    for (int32_t u : u_fringe) {
+      for (int64_t k = eng.rows.indptr[u]; k < eng.rows.indptr[u + 1]; ++k) {
+        int32_t it = eng.rows.indices[k];
+        if (sc.v_stamp[it] != ep) { sc.v_stamp[it] = ep; new_v.push_back(it); }
+      }
+    }
+    new_u.clear();
+    for (int32_t v : v_fringe) {
+      for (int64_t k = eng.cols.indptr[v]; k < eng.cols.indptr[v + 1]; ++k) {
+        int32_t us = eng.cols.indices[k];
+        if (sc.u_stamp[us] != ep) { sc.u_stamp[us] = ep; new_u.push_back(us); }
+      }
+    }
+    std::sort(new_u.begin(), new_u.end());
+    std::sort(new_v.begin(), new_v.end());
+    subsample(new_u, eng.sample_ratio, eng.max_nodes_per_hop, rng);
+    subsample(new_v, eng.sample_ratio, eng.max_nodes_per_hop, rng);
+    if (new_u.empty() && new_v.empty()) break;
+    u_fringe = new_u;
+    v_fringe = new_v;
+    u_nodes.insert(u_nodes.end(), new_u.begin(), new_u.end());
+    v_nodes.insert(v_nodes.end(), new_v.begin(), new_v.end());
+    u_dist.insert(u_dist.end(), new_u.size(), dist);
+    v_dist.insert(v_dist.end(), new_v.size(), dist);
+  }
+
+  const int32_t nu = (int32_t)u_nodes.size();
+  const int32_t nv = (int32_t)v_nodes.size();
+  out.num_u = nu;
+  out.num_v = nv;
+
+  // local item index map (stamped)
+  for (int32_t j = 0; j < nv; ++j) {
+    sc.v_local[v_nodes[j]] = j;
+    sc.v_local_stamp[v_nodes[j]] = ep;
+  }
+
+  // collect edges: iterate selected user rows in order; keep selected items
+  out.src.clear(); out.dst.clear(); out.etype.clear();
+  for (int32_t i = 0; i < nu; ++i) {
+    const int32_t u = u_nodes[i];
+    for (int64_t k = eng.rows.indptr[u]; k < eng.rows.indptr[u + 1]; ++k) {
+      const int32_t it = eng.rows.indices[k];
+      if (sc.v_local_stamp[it] != ep) continue;
+      const int32_t j = sc.v_local[it];
+      if (i == 0 && j == 0) continue;  // remove the target edge
+      out.src.push_back(i);
+      out.dst.push_back(nu + j);
+      out.etype.push_back((int32_t)(eng.rows.data[k] - 1.0f));
+    }
+  }
+
+  out.node_label.resize(nu + nv);
+  for (int32_t i = 0; i < nu; ++i) out.node_label[i] = 2 * u_dist[i];
+  for (int32_t j = 0; j < nv; ++j) out.node_label[nu + j] = 2 * v_dist[j] + 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* igmc_extract_run(
+    const int64_t* u_indptr, const int32_t* u_indices, const float* u_data,
+    int64_t num_users,
+    const int64_t* v_indptr, const int32_t* v_indices, const float* v_data,
+    int64_t num_items,
+    const int64_t* link_u, const int64_t* link_v, int64_t n_links,
+    const int64_t* stream_ids,  // per-link RNG stream id; NULL -> position i
+    int32_t h, double sample_ratio, int64_t max_nodes_per_hop,
+    uint64_t seed, int32_t n_threads) {
+  auto* eng = new Engine{
+      {u_indptr, u_indices, u_data, num_users},
+      {v_indptr, v_indices, v_data, num_items},
+      (int)h, sample_ratio, max_nodes_per_hop, seed, {}};
+  eng->out.resize(n_links);
+
+  if (n_threads <= 0)
+    n_threads = (int32_t)std::max(1u, std::thread::hardware_concurrency());
+  n_threads = (int32_t)std::min<int64_t>(n_threads, std::max<int64_t>(1, n_links));
+
+  std::atomic<int64_t> next(0);
+  auto work = [&]() {
+    Scratch sc(num_users, num_items);
+    while (true) {
+      int64_t i = next.fetch_add(1);
+      if (i >= n_links) break;
+      uint64_t sid = stream_ids ? (uint64_t)stream_ids[i] : (uint64_t)i;
+      uint64_t x = seed;
+      uint64_t s1 = Xoshiro::splitmix64(x);
+      x = s1 ^ sid * 0x9e3779b97f4a7c15ULL;
+      extract_one(*eng, sc, link_u[i], link_v[i], Xoshiro::splitmix64(x),
+                  eng->out[i]);
+    }
+  };
+  if (n_threads == 1) {
+    work();
+  } else {
+    std::vector<std::thread> threads;
+    for (int32_t t = 0; t < n_threads; ++t) threads.emplace_back(work);
+    for (auto& t : threads) t.join();
+  }
+  return eng;
+}
+
+// Per-link node/edge counts and num_u (arrays of length n_links).
+void igmc_extract_sizes(void* handle, int64_t* node_counts,
+                        int64_t* edge_counts, int32_t* num_u) {
+  auto* eng = (Engine*)handle;
+  for (size_t i = 0; i < eng->out.size(); ++i) {
+    node_counts[i] = (int64_t)eng->out[i].node_label.size();
+    edge_counts[i] = (int64_t)eng->out[i].src.size();
+    num_u[i] = eng->out[i].num_u;
+  }
+}
+
+// Fill packed arrays; offsets are the caller-computed exclusive prefix sums.
+void igmc_extract_fill(void* handle, const int64_t* node_offsets,
+                       const int64_t* edge_offsets, int32_t* node_label,
+                       int32_t* src, int32_t* dst, int32_t* etype) {
+  auto* eng = (Engine*)handle;
+  for (size_t i = 0; i < eng->out.size(); ++i) {
+    const auto& g = eng->out[i];
+    std::memcpy(node_label + node_offsets[i], g.node_label.data(),
+                g.node_label.size() * sizeof(int32_t));
+    std::memcpy(src + edge_offsets[i], g.src.data(),
+                g.src.size() * sizeof(int32_t));
+    std::memcpy(dst + edge_offsets[i], g.dst.data(),
+                g.dst.size() * sizeof(int32_t));
+    std::memcpy(etype + edge_offsets[i], g.etype.data(),
+                g.etype.size() * sizeof(int32_t));
+  }
+}
+
+void igmc_extract_free(void* handle) { delete (Engine*)handle; }
+
+// Bump on any signature change; the ctypes loader refuses/rebuilds a .so
+// whose version (or absence of this symbol) does not match, instead of
+// calling through a misaligned ABI.
+int32_t igmc_extract_abi_version() { return 2; }
+
+}  // extern "C"

@@ -57,7 +57,9 @@ def test_split_matches_jax(splits):
     assert a.shape == b.shape and a.dtype == b.dtype
     for part in ("indptr", "indices", "data"):
         np.testing.assert_array_equal(getattr(a, part), getattr(b, part))
-    assert got.u_features is None and got.v_features is None
+    for f in ("u_features", "v_features"):   # ml_1m's side features
+        np.testing.assert_array_equal(getattr(got, f).toarray(),
+                                      getattr(want, f).toarray(), err_msg=f)
 
 
 def test_non_testing_split_matches_jax(tmp_path, monkeypatch):
@@ -96,8 +98,10 @@ def test_map_data_and_missing_dataset(tmp_path, monkeypatch):
     monkeypatch.setenv("IGMC_RAW_DATA", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="ml_1m"):
         load_data("ml_1m")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="ml_100k"):
         load_data("ml_100k")
+    with pytest.raises(ValueError, match="not recognized"):
+        load_data("ml_2m")
 
 
 SUBGRAPH_FIELDS = ("src", "dst", "etype", "node_label", "num_u", "num_v", "y")
@@ -112,7 +116,8 @@ def test_extraction_matches_jax_numpy_engine(splits, h, mnph):
                             h, 1.0, mnph, None, None, want_split.class_values,
                             seed=5, backend="numpy")
     got = extract_many(links, labels, BipartiteCSR(got_split.adj_train), h, 1.0,
-                       mnph, got_split.class_values, seed=5)
+                       mnph, None, None, got_split.class_values, seed=5,
+                       backend="numpy")
     assert len(got) == len(want)
     for g, w in zip(got, want):
         for f in SUBGRAPH_FIELDS:
@@ -122,7 +127,8 @@ def test_extraction_matches_jax_numpy_engine(splits, h, mnph):
                 assert gv.dtype == wv.dtype, f
     if mnph == 3:   # the cap binds: some fringe was cut to 3 nodes
         full = extract_many(links, labels, BipartiteCSR(got_split.adj_train),
-                            h, 1.0, None, got_split.class_values, seed=5)
+                            h, 1.0, None, None, None, got_split.class_values,
+                            seed=5, backend="numpy")
         assert any(f.num_u > g.num_u for f, g in zip(full, got))
 
 
@@ -146,7 +152,8 @@ def test_batches_match_jax_pallas_loader(splits, monkeypatch, mnph, rows, eblk):
         max_num=n, backend="numpy", progress=False)
     got_ds = StaticGraphDataset(
         got_split.adj_train, links, got_split.test_labels, h=1,
-        max_nodes_per_hop=mnph, class_values=got_split.class_values, max_num=n)
+        max_nodes_per_hop=mnph, class_values=got_split.class_values, max_num=n,
+        backend="numpy")
     np.testing.assert_array_equal(got_ds.node_counts(), want_ds.node_counts())
     np.testing.assert_array_equal(got_ds.edge_counts(), want_ds.edge_counts())
 
@@ -185,7 +192,8 @@ def test_training_batches_match_jax_shuffled_loader(splits, seed):
         max_num=120, backend="numpy", progress=False)
     got_ds = StaticGraphDataset(
         got_split.adj_train, links, got_split.train_labels, h=1,
-        max_nodes_per_hop=100, class_values=got_split.class_values, max_num=120)
+        max_nodes_per_hop=100, class_values=got_split.class_values, max_num=120,
+        backend="numpy")
     want_loader = JaxBatchLoader(want_ds, 50, shuffle=True, seed=seed,
                                  device_put=False, prefetch=0,
                                  flat_aggregate="pallas")
@@ -208,7 +216,8 @@ def test_graph_batch_to_moves_every_tensor(splits):
     _, got_split = splits
     ds = StaticGraphDataset(
         got_split.adj_train, (got_split.test_u_indices, got_split.test_v_indices),
-        got_split.test_labels, h=1, class_values=got_split.class_values,
+        got_split.test_labels, h=1, u_features=got_split.u_features,
+        v_features=got_split.v_features, class_values=got_split.class_values,
         max_num=10)
     batch = next(iter(BatchLoader(ds, 10, shuffle=True)))
     moved = batch.to("meta")

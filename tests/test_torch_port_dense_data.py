@@ -60,7 +60,7 @@ def datasets(tmp_path_factory):
                                   backend="numpy", progress=False),
             StaticGraphDataset(gs.adj_train, links, gs.train_labels, h=1,
                                max_nodes_per_hop=100, class_values=gs.class_values,
-                               max_num=N_PAIRS))
+                               max_num=N_PAIRS, backend="numpy"))
 
 
 def assert_batch_equal(got: DenseBatch, want, what):

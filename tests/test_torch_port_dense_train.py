@@ -88,7 +88,8 @@ def data(tmp_path_factory):
                                   backend="numpy", progress=False),
             StaticGraphDataset(gs.adj_train, links, labels, h=1,
                                max_nodes_per_hop=100,
-                               class_values=gs.class_values, max_num=n))
+                               class_values=gs.class_values, max_num=n,
+                               backend="numpy"))
     return out
 
 

@@ -81,7 +81,7 @@ def data(tmp_path_factory):
     got = StaticGraphDataset(
         gs.adj_train, (gs.test_u_indices, gs.test_v_indices), gs.test_labels,
         h=1, max_nodes_per_hop=100, class_values=gs.class_values,
-        max_num=N_PAIRS)
+        max_num=N_PAIRS, backend="numpy")
     return want, got
 
 

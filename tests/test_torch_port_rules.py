@@ -1,8 +1,8 @@
-"""igmc_torch package rules: nothing of JAX, the JAX package, pandas, flax
-or tqdm is imported (AST scan, and a real import with those modules
-blocked); entry points default to the CUDA device and raise without one;
-TF32 is off once a device is resolved; kernel sources ship with the
-package."""
+"""igmc_torch package rules: nothing of JAX, the JAX package, pandas,
+h5py, matplotlib, flax or tqdm is imported (AST scan, and a real import of
+every module with those blocked); entry points default to the CUDA device
+and raise without one; TF32 is off once a device is resolved; kernel and
+extraction-engine sources ship with the package."""
 
 import ast
 import os
@@ -19,7 +19,13 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "igmc_torch")
-FORBIDDEN = ("jax", "jaxlib", "igmc_tpu", "pandas", "flax", "tqdm")
+FORBIDDEN = ("jax", "jaxlib", "igmc_tpu", "pandas", "h5py", "matplotlib",
+             "flax", "tqdm")
+# the modules each slice added, which the scans must reach
+PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
+                "igmc_torch.cli.main", "igmc_torch.graphs.native",
+                "igmc_torch.native.build", "igmc_torch.data.loaders",
+                "igmc_torch.data.splits")
 
 
 def _port_sources():
@@ -44,22 +50,24 @@ def _imported_roots(path):
     return roots
 
 
+def _module_name(path):
+    mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+    return mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
+
+
 def test_port_sources_import_nothing_forbidden():
     sources = _port_sources()
     assert len(sources) > 15
+    assert set(PORT_MODULES) <= {_module_name(p) for p in sources}
     for path in sources:
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
 
 
 def test_port_modules_import_with_forbidden_modules_blocked():
-    modules = []
-    for path in _port_sources():
-        rel = os.path.relpath(path, REPO)
-        if rel.startswith("igmc_torch"):
-            mod = rel[:-3].replace(os.sep, ".")
-            modules.append(mod[: -len(".__init__")] if mod.endswith(".__init__")
-                           else mod)
+    modules = [_module_name(p) for p in _port_sources()
+               if os.path.relpath(p, REPO).startswith("igmc_torch")]
+    assert set(PORT_MODULES) <= set(modules)
     code = (
         "import importlib, importlib.abc, sys\n"
         f"BLOCK = {FORBIDDEN!r}\n"

@@ -103,7 +103,8 @@ def data(tmp_path_factory):
                                   progress=False),
             StaticGraphDataset(gs.adj_train, links, labels, h=1,
                                max_nodes_per_hop=100,
-                               class_values=gs.class_values, max_num=N_PAIRS))
+                               class_values=gs.class_values, max_num=N_PAIRS,
+                               backend="numpy"))
     return out
 
 
