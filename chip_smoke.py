@@ -87,7 +87,29 @@ non-zero:
      second, and the device's busy share over a 2,000-pair call;
  16. the serving CLI: `python -m igmc_torch.cli.predict` on phase 14's
      results in a subprocess, one line per pair, equal to an in-process
-     Predictor's scores to 1e-6.
+     Predictor's scores to 1e-6;
+ 17. the main path's options, on phase 10's checkpoints and the same
+     pairs, K1 and K2 launching 0 times: bfloat16 (the dense bipartite
+     test_once ensemble's RMSE beside float32's, predictions within 0.05;
+     one training step card vs CPU, loss rtol BF16_LOSS_RTOL, gradients
+     BF16_GRAD_TOL of the largest entry; a bfloat16 Predictor's scores
+     equal test_once's bfloat16 dense unified ensemble to 1e-5 with
+     deterministic scatters, the difference without them printed; forward
+     and step times beside float32's); the strategies (adjacency
+     predictions equal edge's on the unified layout, rtol 1e-5, and the
+     relation-slotted layout's (DeviceDataset(rel_sort=R), plan_rel_caps)
+     equal the bipartite edge layout's, rtol 1e-4 / atol 1e-5; one
+     training step of each card vs CPU; forward time per batch of each;
+     edge-k is the edge code and is not run apart); giant batches (one
+     step of 1,000 training graphs in slices of 50 against the whole-row
+     step from the same weights, row and noise, dropout on: loss rel 1e-5,
+     gradients CHUNK_GRAD_TOL, parameters atol 5e-5, each step's time and
+     peak memory; `train_multiple_epochs(batch_mode="dense",
+     dense_chunk=50, batch_size=1000, epochs=2)` with finite losses); and
+     the CLI on ml_100k with `--compute-dtype bfloat16 --dense-chunk 10
+     --dense-strategy adjacency` in a subprocess (exit 0, the JAX CLI's
+     `batch mode: dense (--dense-chunk)` and `dense layout: unified
+     (auto)`, finite RMSEs in log.txt).
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -123,6 +145,14 @@ MANY_RELATIONS = 71              # yahoo_music's rating levels
 BEFORE_MS = {"rgcn_aggregate_fwd": {32: 0.3923, 4: 0.1159},
              "rgcn_aggregate_bwd": {32: 0.5793, 4: 0.4720}}
 GRAD_TOL = 1e-4                  # card vs CPU training step
+# bfloat16 card vs CPU training step: the two sum in float32 in another
+# order, so a state lying at a bfloat16 rounding midpoint can round one ulp
+# (2**-8 of its value) apart and carry that through the later layers; ten
+# times the float32 bounds (measured on an H100: loss 1e-7 relative,
+# gradients 1.7e-6 of the largest entry)
+BF16_LOSS_RTOL, BF16_GRAD_TOL = 1e-4, 1e-3
+GIANT_BATCH, GIANT_CHUNK = 1000, 50
+CHUNK_GRAD_TOL = 1e-5            # chunked vs whole-row step gradients
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
 BATCH_SIZE = 50                  # the CLI's default batch
 CPU_BATCHES = 5                  # batches held against the CPU plain path
@@ -161,22 +191,31 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 def kernel_ms(fn, name: str, reps: int) -> float:
     """Device milliseconds per launch of the kernel whose name contains
     `name`, over `reps` calls of `fn()` (torch.profiler's device time): the
-    kernel alone, without the host time of the wrapper around it."""
+    kernel alone, without the host time of the wrapper around it. The
+    profiler can drop device records; a trace that does not hold all `reps`
+    launches is taken again, at most twice, and said so."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key and e.device_time_total > 0]
-    count = sum(e.count for e in hits)
-    if count != reps:
-        fail(f"profiler saw {count} launches of {name}, expected {reps}")
-    return sum(e.device_time_total for e in hits) / 1e3 / count
+    seen = []
+    for _ in range(3):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if name in e.key and e.device_time_total > 0]
+        count = sum(e.count for e in hits)
+        if count == reps:
+            if seen:
+                print(f"[profile] {name}: the profiler saw {seen} of {reps} "
+                      f"launches before a full trace; traced again")
+            return sum(e.device_time_total for e in hits) / 1e3 / count
+        seen.append(count)
+    fail(f"profiler saw {seen} launches of {name} in three traces, expected {reps}")
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -766,11 +805,11 @@ def run_cli(raw_data: str) -> None:
         print(f"[cli] log.txt: {line}")
 
 
-def card_vs_cpu_step(cfg, batch, label):
+def card_vs_cpu_step(cfg, batch, label, loss_rtol=1e-5, grad_tol=GRAD_TOL):
     """One training step's loss and gradients from the same weights (seed
-    5), `batch` and noise on the card and on the CPU: loss to rtol 1e-5,
-    every gradient to rtol GRAD_TOL / atol GRAD_TOL of its largest entry
-    (with side features, lin1's feature columns are reported apart)."""
+    5), `batch` and noise on the card and on the CPU: loss to `loss_rtol`,
+    every gradient to rtol / atol `grad_tol` of its largest entry (with
+    side features, lin1's feature columns are reported apart)."""
     import torch
     from igmc_torch.models import IGMC, draw_noise
     from igmc_torch.train import loss_fn
@@ -783,7 +822,7 @@ def card_vs_cpu_step(cfg, batch, label):
         loss.backward()
         loss_vals[where] = loss.item()
         grads[where] = {k: p.grad.cpu() for k, p in mm.named_parameters()}
-    if abs(loss_vals["cuda"] - loss_vals["cpu"]) > 1e-5 * abs(loss_vals["cpu"]):
+    if abs(loss_vals["cuda"] - loss_vals["cpu"]) > loss_rtol * abs(loss_vals["cpu"]):
         fail(f"{label}: training loss on the card {loss_vals['cuda']} != CPU "
              f"{loss_vals['cpu']}")
     worst = 0.0
@@ -792,7 +831,7 @@ def card_vs_cpu_step(cfg, batch, label):
         scale = float(gc.abs().max())
         worst = max(worst, float((gg - gc).abs().max()) / max(scale, 1e-30))
         try:
-            torch.testing.assert_close(gg, gc, rtol=GRAD_TOL, atol=GRAD_TOL * scale)
+            torch.testing.assert_close(gg, gc, rtol=grad_tol, atol=grad_tol * scale)
         except AssertionError as e:
             fail(f"{label}: gradient of {k} on the card disagrees with the CPU: {e}")
     extra = ""
@@ -807,7 +846,8 @@ def card_vs_cpu_step(cfg, batch, label):
     print(f"[{label}] one training step: loss {loss_vals['cuda']:.6f} "
           f"(card) vs {loss_vals['cpu']:.6f} (CPU); worst gradient "
           f"difference {worst:.3e} of its parameter's largest entry "
-          f"(rtol {GRAD_TOL}, atol {GRAD_TOL} of the largest entry){extra}")
+          f"(loss rtol {loss_rtol}; rtol {grad_tol}, atol {grad_tol} of the largest "
+          f"entry){extra}")
 
 
 def features_phase(split, cfg, dev, reset_counts, read_counts, expect):
@@ -1040,6 +1080,283 @@ def run_predict_cli(raw_data, cwd, results):
     print(f"[cli predict] {len(rows)} lines, {wall:.2f} s; scores vs an in-process "
           f"Predictor: max abs diff {worst:.3e} (1e-6; printed %.6f); "
           + "; ".join(said))
+
+
+def _model(cfg, state, dev):
+    import torch
+    from igmc_torch.models import IGMC
+
+    m = IGMC(cfg, torch.Generator().manual_seed(0))
+    m.load_state_dict(state)
+    return m.to(dev).eval()
+
+
+def _forward_times(label, model, batches):
+    """Forward ms per batch (CUDA events) and ms of kernels per batch
+    (profiler) of `model` over `batches`."""
+    import torch
+
+    def forward_all():
+        with torch.no_grad():
+            for b in batches:
+                model(b)
+
+    wall = cuda_ms(forward_all, 2, warmup=1) / len(batches)
+    _, busy_ms, _ = profile(forward_all, f"{label} forward", f"{len(batches)} batches")
+    kern = busy_ms / len(batches)
+    print(f"[options] {label}: forward {wall:.4f} ms per batch (CUDA events), "
+          f"{kern:.4f} ms of kernels per batch (profiler), {len(batches)} batches")
+    return {"forward_ms": wall, "forward_kernel_ms": kern}
+
+
+def _step_ms(cfg, batches, dev):
+    """Training step ms (assembled batch in; forward, backward and Adam) by
+    CUDA events over `batches`, after two warm-up steps."""
+    import torch
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.train import make_optimizer, make_train_step
+
+    gen = torch.Generator().manual_seed(4)
+    noises = [(s, k.to(dev)) for s, k in
+              (draw_noise(gen, b.num_graphs) for b in batches)]
+    m = IGMC(cfg, torch.Generator().manual_seed(3)).to(dev).train()
+    step = make_train_step(m, make_optimizer(m.parameters(), 1e-3), 0.001)
+    for b, nz in zip(batches[:2], noises[:2]):
+        step(b, nz)
+
+    def steps_all():
+        for b, nz in zip(batches, noises):
+            step(b, nz)
+
+    return cuda_ms(steps_all, 1, warmup=0) / len(batches)
+
+
+def options_phase(split, cfg, ckpts, train_ds, test_ds, dtrain, dev, raw_data,
+                  cwd, reset_counts, read_counts, expect):
+    """Phase 17: the main path's options at full width. Returns the numbers
+    it measured."""
+    from dataclasses import replace
+
+    import torch
+    from igmc_torch.batching import DeviceDataset, assemble_dense, plan_rel_caps
+    from igmc_torch.batching.dataset import _apply_max_num
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.serve import Predictor
+    from igmc_torch.train import (DensePass, dense_predict_all, load_checkpoint,
+                                  make_dense_row_step, make_eval_step,
+                                  make_optimizer, plan_buckets, test_once,
+                                  train_multiple_epochs)
+
+    out = {}
+    R = cfg.num_relations
+    bf16 = replace(cfg, compute_dtype="bfloat16")
+    states = [load_checkpoint(c) for c in ckpts]
+    dd = DeviceDataset(test_ds.packed, dev)
+    passes = {lay: DensePass.plan(plan_buckets(test_ds, lay), BATCH_SIZE, 8, dev)
+              for lay in ("bipartite", "unified")}
+
+    def ensemble(c, layout, rel_caps=None, data=dd):
+        return np.mean([dense_predict_all(make_eval_step(_model(c, st, dev)), data,
+                                          passes[layout], rel_caps)
+                        for st in states], axis=0)
+
+    # ---- bfloat16 ---------------------------------------------------------
+    reset_counts()
+    rmse, ens = {}, {}
+    for name, c in (("float32", cfg), ("bfloat16", bf16)):
+        rmse[name] = test_once(test_ds, IGMC(c, torch.Generator().manual_seed(0)),
+                               BATCH_SIZE,
+                               ensemble=True, checkpoints=ckpts, batch_mode="dense",
+                               dense_layout="bipartite", device="cuda")
+        ens[name] = ensemble(c, "bipartite")
+    ys = np.asarray(test_ds.packed.y, np.float32)
+    again = math.sqrt(float(np.mean((ens["bfloat16"] - ys) ** 2)))
+    if abs(again - rmse["bfloat16"]) > 1e-5:
+        fail(f"bfloat16: test_once RMSE {rmse['bfloat16']} != recomputed {again}")
+    worst = float(np.abs(ens["bfloat16"] - ens["float32"]).max())
+    print(f"[options] bfloat16 dense bipartite ensemble of {len(ckpts)} over "
+          f"{len(test_ds)} pairs: RMSE {rmse['bfloat16']:.6f} (float32 "
+          f"{rmse['float32']:.6f}); worst |bfloat16 - float32| prediction "
+          f"{worst:.3e} (limit 0.05)")
+    if not worst <= 0.05:
+        fail(f"bfloat16 predictions differ from float32's by {worst}")
+    out["bf16_rmse"], out["f32_rmse"], out["bf16_worst_diff"] = (
+        rmse["bfloat16"], rmse["float32"], worst)
+    card_vs_cpu_step(bf16, dtrain[0], "options, bfloat16 card vs CPU",
+                     BF16_LOSS_RTOL, BF16_GRAD_TOL)
+
+    (us, vs), _ = _apply_max_num((split.test_u_indices, split.test_v_indices),
+                                 split.test_labels, MAX_NUM)
+    pred = Predictor(split.adj_train, split.class_values, bf16, checkpoints=ckpts,
+                     backend="native", device="cuda", h=1, max_nodes_per_hop=100,
+                     batch_size=BATCH_SIZE)
+    loose = float(np.abs(pred.predict(us, vs) - ensemble(bf16, "unified")).max())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, want = pred.predict(us, vs), ensemble(bf16, "unified")
+        t_rmse = test_once(test_ds, IGMC(bf16, torch.Generator().manual_seed(0)),
+                           BATCH_SIZE,
+                           ensemble=True, checkpoints=ckpts, batch_mode="dense",
+                           dense_layout="unified", device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = float(np.abs(got - want).max())
+    again = math.sqrt(float(np.mean((want - ys) ** 2)))
+    print(f"[options] bfloat16 Predictor vs test_once's bfloat16 dense unified "
+          f"ensemble on {len(us)} pairs: max abs diff {diff:.3e} with deterministic "
+          f"scatters (atol {SERVE_ATOL}), {loose:.3e} without; RMSE test_once "
+          f"{t_rmse:.6f}, recomputed {again:.6f}")
+    if not diff <= SERVE_ATOL or abs(again - t_rmse) > 1e-5:
+        fail(f"bfloat16 served scores differ from test_once's by {diff}")
+    out["bf16_serve_diff"], out["bf16_serve_diff_nondeterministic"] = diff, loose
+
+    batches = list(passes["bipartite"].batches(dd))
+    for name, c in (("float32", cfg), ("bfloat16", bf16)):
+        out[f"{name}_bipartite"] = _forward_times(
+            f"{name} dense bipartite", _model(c, states[-1], dev), batches)
+        out[f"{name}_bipartite"]["step_ms"] = ms = _step_ms(c, dtrain, dev)
+        print(f"[options] {name}: training step {ms:.4f} ms (CUDA events over "
+              f"{len(dtrain)} dense bipartite batches)")
+    read_counts("options_bf16")
+    expect("options_bf16", "rgcn_aggregate_fwd", 0)
+    expect("options_bf16", "rgcn_aggregate_bwd", 0)
+
+    # ---- strategies -------------------------------------------------------
+    reset_counts()
+    edge = ensemble(cfg, "unified")
+    adj = ensemble(replace(cfg, dense_strategy="adjacency"), "unified")
+    rel = float((np.abs(adj - edge) / np.abs(edge)).max())
+    print(f"[options] adjacency vs edge, unified ensemble on {len(edge)} pairs: "
+          f"max relative diff {rel:.3e} (rtol 1e-5)")
+    if not np.allclose(adj, edge, rtol=1e-5, atol=1e-6):
+        fail(f"adjacency predictions differ from edge's by {rel} relative")
+    etypes = lambda ds: np.split(ds.packed.etype, ds.packed.edge_offsets[1:-1])
+    caps = plan_rel_caps(etypes(test_ds) + etypes(train_ds), R)
+    dd_rel = DeviceDataset(test_ds.packed, dev, rel_sort=R)
+    relslot = ensemble(cfg, "bipartite", caps, dd_rel)
+    diff = float(np.abs(relslot - ens["float32"]).max())
+    print(f"[options] relation-slotted (rel_caps {caps}, {sum(caps)} edge slots) vs "
+          f"bipartite edge ensemble: max abs diff {diff:.3e} (rtol 1e-4, atol 1e-5)")
+    if not np.allclose(relslot, ens["float32"], rtol=1e-4, atol=1e-5):
+        fail(f"relation-slotted predictions differ from bipartite edge's by {diff}")
+    out["relslot_caps"] = list(caps)
+
+    dd_train = DeviceDataset(train_ds.packed, dev)
+    rng = lambda: np.random.default_rng(np.random.SeedSequence([1, 1]))
+    uni_train = next(DensePass.plan(plan_buckets(train_ds, "unified"), BATCH_SIZE, 8,
+                                    dev, rng()).batches(dd_train))
+    rel_train = next(DensePass.plan(plan_buckets(train_ds, "bipartite"), BATCH_SIZE, 8,
+                                    dev, rng()).batches(
+        DeviceDataset(train_ds.packed, dev, rel_sort=R), caps))
+    card_vs_cpu_step(replace(cfg, dense_strategy="adjacency"), uni_train,
+                     "options, adjacency card vs CPU")
+    card_vs_cpu_step(cfg, rel_train, "options, relation-slotted card vs CPU")
+    uni = list(passes["unified"].batches(dd))
+    for strategy in ("edge", "adjacency"):
+        out[f"{strategy}_unified"] = _forward_times(
+            f"{strategy} unified", _model(replace(cfg, dense_strategy=strategy),
+                                          states[-1], dev), uni)
+    out["relslot_bipartite"] = _forward_times(
+        "relation-slotted bipartite", _model(cfg, states[-1], dev),
+        list(passes["bipartite"].batches(dd_rel, caps)))
+    read_counts("options_strategies")
+    expect("options_strategies", "rgcn_aggregate_fwd", 0)
+    expect("options_strategies", "rgcn_aggregate_bwd", 0)
+
+    # ---- giant batches ------------------------------------------------------
+    reset_counts()
+    big = plan_buckets(train_ds, "bipartite", max_buckets=1)[0]
+    row = torch.from_numpy(np.random.default_rng(2).permutation(big.indices)
+                           [:GIANT_BATCH].astype(np.int64)).to(dev)
+    assemble = lambda gids: assemble_dense(dd_train, gids, big.node_slot,
+                                           big.edge_slot, big.num_u_slot)
+    noise = draw_noise(torch.Generator().manual_seed(6), GIANT_BATCH)
+    noise = (noise[0], noise[1].to(dev))
+    res = {}
+    for chunk in (GIANT_CHUNK, 0):
+        m = IGMC(cfg, torch.Generator().manual_seed(3)).to(dev).train()
+        row_step = make_dense_row_step(m, make_optimizer(m.parameters(), 1e-3),
+                                       chunk, 0.001)
+        step = lambda: row_step(assemble, row, noise)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        params = {k: v.detach().clone() for k, v in m.state_dict().items()}
+        grads = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        ms = cuda_ms(step, 3, warmup=0)
+        res[chunk] = (loss.item(), params, grads)
+        tag = f"chunk {chunk}" if chunk else "whole row"
+        out[f"giant_{'chunked' if chunk else 'whole'}"] = {
+            "step_ms": ms, "peak_mib": peak / 2**20, "base_mib": base / 2**20}
+        print(f"[options] giant batch of {GIANT_BATCH} ({big.node_slot} node rows x "
+              f"{big.edge_slot} edge slots), {tag}: loss {loss.item():.6f}; "
+              f"first step {1e3 * first_s:.1f} ms, then {ms:.2f} ms per step (CUDA "
+              f"events); peak memory {peak / 2**20:.1f} MiB "
+              f"(torch.cuda.max_memory_allocated, {base / 2**20:.1f} MiB before)")
+    (l_c, p_c, g_c), (l_w, p_w, g_w) = res[GIANT_CHUNK], res[0]
+    worst = max(float((p_c[k] - p_w[k]).abs().max()) for k in p_w)
+    g_worst = 0.0
+    for k, gw in g_w.items():
+        scale = float(gw.abs().max())
+        g_worst = max(g_worst, float((g_c[k] - gw).abs().max()) / max(scale, 1e-30))
+        try:
+            torch.testing.assert_close(g_c[k], gw, rtol=CHUNK_GRAD_TOL,
+                                       atol=CHUNK_GRAD_TOL * scale)
+        except AssertionError as e:
+            fail(f"the chunked giant-batch step's gradient of {k} differs from "
+                 f"the whole-row step's: {e}")
+    print(f"[options] chunked vs whole-row step: loss rel diff "
+          f"{abs(l_c - l_w) / abs(l_w):.3e} (1e-5), gradients worst diff "
+          f"{g_worst:.3e} of the largest entry (rtol {CHUNK_GRAD_TOL}, atol "
+          f"{CHUNK_GRAD_TOL} of the largest entry), parameters max abs diff "
+          f"{worst:.3e} (5e-5); peak memory ratio "
+          f"{out['giant_chunked']['peak_mib'] / out['giant_whole']['peak_mib']:.3f}")
+    if abs(l_c - l_w) > 1e-5 * abs(l_w) or not worst <= 5e-5:
+        fail(f"the chunked giant-batch step differs from the whole-row step "
+             f"(loss {l_c} vs {l_w}, parameters {worst})")
+    infos = []
+    t0 = time.perf_counter()
+    train_multiple_epochs(
+        train_ds, test_ds, IGMC(cfg, torch.Generator().manual_seed(3)), epochs=2,
+        batch_size=GIANT_BATCH, lr=1e-3, lr_decay_factor=0.1, lr_decay_step_size=50,
+        ARR=0.001, seed=1, batch_mode="dense", dense_layout="bipartite",
+        dense_chunk=GIANT_CHUNK, device="cuda",
+        logger=lambda info, state: infos.append(dict(info)))
+    torch.cuda.synchronize()
+    losses = [(i["train_loss"], i["test_rmse"]) for i in infos]
+    print(f"[options] train_multiple_epochs(dense_chunk={GIANT_CHUNK}, batch_size="
+          f"{GIANT_BATCH}): (train loss, test rmse) per epoch {losses}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if len(losses) != 2 or not all(math.isfinite(v) for p in losses for v in p):
+        fail(f"giant-batch training gave {losses}")
+    read_counts("options_dense_chunk")
+    expect("options_dense_chunk", "rgcn_aggregate_fwd", 0)
+    expect("options_dense_chunk", "rgcn_aggregate_bwd", 0)
+
+    # ---- the CLI ---------------------------------------------------------
+    cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "ml_100k",
+           "--testing", "--ensemble", "--epochs", "1", "--save-interval", "1",
+           "--compute-dtype", "bfloat16", "--dense-chunk", "10",
+           "--dense-strategy", "adjacency"]
+    lines = _subprocess(cmd, raw_data, cwd, "cli options")[0]
+    for want in ("batch mode: dense (--dense-chunk)", "dense layout: unified (auto)"):
+        if want not in lines:
+            fail(f"the options CLI did not print {want!r}")
+    log_path = os.path.join(cwd, "results", "ml_100k_testmode", "log.txt")
+    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
+    heads = ["Epoch 1,", "Epoch ensemble of range(-29, 1, 10),"]
+    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
+        fail(f"the options CLI's log.txt reads {log}")
+    for line in log:
+        if not math.isfinite(float(line.split()[-1])):
+            fail(f"the options CLI's log.txt has a RMSE that is not finite: {line}")
+        print(f"[cli options] log.txt: {line}")
+    return out
 
 
 def main() -> None:
@@ -1342,6 +1659,14 @@ def main() -> None:
         with phase("cli predict"):
             run_predict_cli(args.raw_data, cwd100k, results100k)
 
+        # ---- 17. the main path's options ------------------------------------------
+        cwd_options = os.path.join(work, "options_run")
+        os.makedirs(cwd_options)
+        with phase("options"):
+            options = options_phase(split, cfg, dense_ckpts, train_ds, test_ds, dtrain,
+                                    dev, args.raw_data, cwd_options, reset_counts,
+                                    read_counts, expect)
+
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
@@ -1370,6 +1695,7 @@ def main() -> None:
     print(f"[time] total {total:.2f} s ("
           + ", ".join(f"{k} {v:.2f}" for k, v in phase.seconds.items()) + ")")
     print(f"[serve] timings: {json.dumps(serve_times)}")
+    print(f"[options] numbers: {json.dumps(options)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

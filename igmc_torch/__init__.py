@@ -10,8 +10,10 @@ Entry points run on the CUDA device unless the caller passes
 computes its plain PyTorch version; on a CUDA tensor it launches the
 kernel or raises.
 
-Ported so far: checkpoint evaluation on the flat layout with the fused
-R-GCN aggregate kernel (`train.loop.test_once(flat_aggregate="pallas")`).
+Ported so far: training, evaluation and serving on the dense slot layout
+(float32 or bfloat16; edge, adjacency and relation-slotted strategies,
+edge-k as an alias of edge; giant batches) and on the flat layout with the fused R-GCN
+aggregate kernels, the MovieLens datasets, and the CLIs (README.md).
 """
 
 from .device import resolve_device

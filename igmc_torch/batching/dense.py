@@ -1,7 +1,7 @@
 """Dense slot batching: one fixed node slot per graph, targets at fixed rows.
 
-Port of igmc_tpu/batching/dense.py (DenseBatch, slot_perm, collate_dense
-and the bucket planners), without the relation-slotted edge axis:
+Port of igmc_tpu/batching/dense.py (DenseBatch, slot_perm, collate_dense,
+plan_rel_caps and the bucket planners):
 
   * every graph occupies a slot of `n` node rows, so node states are
     [B, n, C];
@@ -17,6 +17,12 @@ Two slot layouts share DenseBatch, told apart by `num_u`:
   * BIPARTITE (`num_u = nu`, a per-bucket boundary): users in rows
     [0, nu), items in [nu, n); target user at row 0, target item at row
     nu. Padded edges point at item row nu, with mask 0.
+
+Either layout's edge axis may be RELATION-SLOTTED (`rel_caps`, a tuple of
+R per-relation capacities summing to E): each graph's relation-r edges sit
+in [off_r, off_r + count_r), off_r = sum(caps[:r]), and every position of
+the segment, padding included, carries relation r (models/rgcn.py
+relslot_plan reads the relation from the position).
 
 Batches built on the device (batching/device_data.py assemble_dense) also
 carry `edge_id`, each stored edge's index in the packed dataset tables:
@@ -54,6 +60,7 @@ class DenseBatch:
     v_feat: Optional[torch.Tensor] = None  # float32 [B, dv] target-item features
     num_u: Optional[int] = None            # bipartite user/item boundary
     edge_id: Optional[torch.Tensor] = None  # int64 [B, E] packed edge index
+    rel_caps: Optional[tuple] = None       # relation-slotted edge axis
 
     @property
     def num_graphs(self) -> int:
@@ -74,6 +81,13 @@ class DenseBatch:
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
+    def graphs(self, start: int, stop: int) -> "DenseBatch":
+        """The batch of graphs [start, stop): views of every tensor."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[start:stop]
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
 
 def slot_perm(num_u: int, num_nodes: int) -> np.ndarray:
     """Extraction-order -> slot-row permutation of the unified layout.
@@ -91,15 +105,23 @@ def slot_perm(num_u: int, num_nodes: int) -> np.ndarray:
 
 
 def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
-                  edge_slot: int, num_u_slot: Optional[int] = None) -> DenseBatch:
+                  edge_slot: int, num_u_slot: Optional[int] = None,
+                  rel_caps: Optional[tuple] = None) -> DenseBatch:
     """Pack subgraphs one per slot (CPU tensors); slots must fit every graph.
 
     With `num_u_slot`, pack the bipartite layout: users keep their
     extraction order in rows [0, num_u_slot), items theirs in rows
-    [num_u_slot, node_slot)."""
+    [num_u_slot, node_slot). With `rel_caps` (R capacities summing to
+    edge_slot), pack the relation-slotted edge axis: relation r's edges in
+    their extraction order from sum(caps[:r])."""
     B, n, E = num_graphs, node_slot, edge_slot
     if len(graphs) > B:
         raise ValueError(f"{len(graphs)} graphs > batch size {B}")
+    if rel_caps is not None:
+        rel_caps = tuple(int(c) for c in rel_caps)
+        if sum(rel_caps) != E:
+            raise ValueError(f"rel_caps {rel_caps} must sum to edge_slot {E}")
+        rel_off = np.concatenate([[0], np.cumsum(rel_caps)]).astype(np.int64)
     node_label = np.zeros((B, n), dtype=np.int32)
     node_mask = np.zeros((B, n), dtype=bool)
     edge_src = np.zeros((B, E), dtype=np.int32)
@@ -131,10 +153,21 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
             node_mask[gi, :g.num_u] = True
             node_mask[gi, num_u_slot:num_u_slot + g.num_v] = True
         node_label[gi, perm] = g.node_label
-        edge_src[gi, :ne] = perm[g.src]
-        edge_dst[gi, :ne] = perm[g.dst]
-        edge_type[gi, :ne] = g.etype
-        edge_mask[gi, :ne] = True
+        if rel_caps is None:
+            epos = np.arange(ne)
+        else:
+            epos = np.empty(ne, dtype=np.int64)
+            for r in np.unique(g.etype):
+                sel = np.flatnonzero(g.etype == r)
+                cap = rel_caps[r] if r < len(rel_caps) else 0
+                if len(sel) > cap:
+                    raise ValueError(f"graph has {len(sel)} relation-{r} edges > "
+                                     f"capacity {cap}")
+                epos[sel] = rel_off[r] + np.arange(len(sel))
+        edge_src[gi, epos] = perm[g.src]
+        edge_dst[gi, epos] = perm[g.dst]
+        edge_type[gi, epos] = g.etype
+        edge_mask[gi, epos] = True
         y[gi] = g.y
         graph_mask[gi] = True
         if u_feat is not None:
@@ -142,6 +175,8 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
             v_feat[gi] = g.v_feat
     if num_u_slot is not None:
         edge_dst[~edge_mask] = num_u_slot   # a valid item row, masked out
+    if rel_caps is not None:                # padding carries its segment's relation
+        edge_type[:] = np.repeat(np.arange(len(rel_caps), dtype=np.int32), rel_caps)
 
     t = torch.from_numpy
     return DenseBatch(node_label=t(node_label), edge_src=t(edge_src),
@@ -150,7 +185,21 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
                       graph_mask=t(graph_mask),
                       u_feat=None if u_feat is None else t(u_feat),
                       v_feat=None if v_feat is None else t(v_feat),
-                      num_u=num_u_slot)
+                      num_u=num_u_slot, rel_caps=rel_caps)
+
+
+def plan_rel_caps(etypes: Sequence[np.ndarray], num_relations: int,
+                  base: int = 8) -> tuple:
+    """Per-relation edge capacities covering every graph: for each relation
+    r the most relation-r edges of any graph, rounded up to a multiple of
+    `base`. A relation no graph has gets capacity 0, where the JAX package
+    gives it `base` (a known defect of the reference: its segment only
+    pads). The sum is the relation-slotted edge_slot."""
+    caps = np.zeros(num_relations, dtype=np.int64)
+    for et in etypes:
+        if len(et):
+            caps = np.maximum(caps, np.bincount(et, minlength=num_relations))
+    return tuple(int(-(-int(c) // base) * base) for c in caps)
 
 
 def _round8(v: int) -> int:

@@ -1,9 +1,9 @@
 """Device-resident datasets: the packed subgraphs uploaded once, dense
 batches assembled on the device from graph-id vectors.
 
-Port of igmc_tpu/batching/device_data.py (_compact_int, DeviceDataset,
-assemble_dense without the relation-slotted axis, live_rows), in torch
-ops on an explicit device. A step uploads nothing but its [B] graph ids
+Port of igmc_tpu/batching/device_data.py (_compact_int, DeviceDataset with
+rel_sort, assemble_dense with rel_caps, live_rows), in torch ops on an
+explicit device. A step uploads nothing but its [B] graph ids
 (the epoch loops upload an epoch's ids at once); the row gathers from the
 packed tables run on the device, once per batch.
 """
@@ -35,15 +35,38 @@ class DeviceDataset:
     """The packed subgraph tables (batching/dataset.py _PackedGraphs) on
     `device`: node labels, graph-local src/dst and edge types compacted to
     the narrowest lossless integer type, int64 offsets, num_u and y, and
-    the side-feature tables when the graphs carry them (else None)."""
+    the side-feature tables when the graphs carry them (else None).
 
-    def __init__(self, packed, device="cuda"):
+    `rel_sort` = R stores each graph's edges stably sorted by relation,
+    with `rel_start` [G, R + 1], each graph's relation-segment starts
+    relative to its first edge, and `edge_id`, each sorted edge's packed
+    index before the sort (what dense dropout keys on). The relation-
+    slotted assembly needs them; the other assemblies run on either."""
+
+    def __init__(self, packed, device="cuda", rel_sort: Optional[int] = None):
         self.device = resolve_device(device)
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        src, dst, etype = packed.src, packed.dst, packed.etype
+        self.num_relations = rel_sort
+        self.rel_start = self.edge_id = None
+        if rel_sort is not None:
+            G, R = len(packed), int(rel_sort)
+            if len(etype) and int(etype.max()) >= R:
+                raise ValueError(f"rel_sort {R}: the graphs carry relation "
+                                 f"{int(etype.max())}")
+            gid = np.repeat(np.arange(G, dtype=np.int64), np.diff(packed.edge_offsets))
+            order = np.lexsort((etype.astype(np.int64), gid))
+            src, dst, etype = src[order], dst[order], etype[order]
+            cnt = np.bincount(gid * R + etype, minlength=G * R).reshape(G, R)
+            rel_start = np.zeros((G, R + 1), np.int64)
+            rel_start[:, 1:] = np.cumsum(cnt, axis=1)
+            self.rel_start = put(rel_start)
+            self.edge_id = put(order.astype(np.int64))
+        self._slot_maps = {}
         self.node_label = put(_compact_int(packed.node_label))
-        self.src = put(_compact_int(packed.src))
-        self.dst = put(_compact_int(packed.dst))      # num_u + item-local
-        self.etype = put(_compact_int(packed.etype))
+        self.src = put(_compact_int(src))
+        self.dst = put(_compact_int(dst))             # num_u + item-local
+        self.etype = put(_compact_int(etype))
         self.node_off = put(packed.node_offsets.astype(np.int64))
         self.edge_off = put(packed.edge_offsets.astype(np.int64))
         self.num_u = put(packed.num_u.astype(np.int64))
@@ -57,14 +80,31 @@ class DeviceDataset:
     def __len__(self):
         return self.num_graphs
 
+    def slot_maps(self, rel_caps: tuple):
+        """(relation, offset in its segment) of every position of a
+        relation-slotted edge axis, two int64 [E] tensors on the device,
+        built once per rel_caps."""
+        if rel_caps not in self._slot_maps:
+            caps = np.asarray(rel_caps, np.int64)
+            rel = np.repeat(np.arange(len(caps)), caps)
+            local = np.arange(int(caps.sum())) - np.concatenate([[0], np.cumsum(caps)])[rel]
+            self._slot_maps[rel_caps] = tuple(
+                torch.from_numpy(a.astype(np.int64)).to(self.device) for a in (rel, local))
+        return self._slot_maps[rel_caps]
+
 
 def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,
-                   edge_slot: int, num_u_slot: Optional[int] = None) -> DenseBatch:
+                   edge_slot: int, num_u_slot: Optional[int] = None,
+                   rel_caps: Optional[tuple] = None) -> DenseBatch:
     """One DenseBatch on dd's device from graph ids `gids` [B] (int64 on
     that device; -1 = a padding graph), with the rows of collate_dense:
     unified (slot_perm's rows) or, with `num_u_slot`, bipartite, and the
-    graphs' side-feature rows (zero for padding graphs). Also sets
-    `edge_id`, the packed index of each stored edge."""
+    graphs' side-feature rows (zero for padding graphs). With `rel_caps`
+    (summing to edge_slot; needs DeviceDataset(rel_sort=R)), the edge axis
+    is relation-slotted: a graph's relation-r edges in packed order from
+    sum(caps[:r]), edges beyond a capacity left out, as in the JAX
+    package. Also sets `edge_id`, the packed index of each stored edge
+    (from before the relation sort)."""
     n, E = node_slot, edge_slot
     dev = dd.device
     gmask = gids >= 0
@@ -73,12 +113,26 @@ def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,
     first_n = dd.node_off[g][:, None]
     first_e = dd.edge_off[g][:, None]
     counts_n = (dd.node_off[g + 1][:, None] - first_n) * gmask[:, None]
-    counts_e = (dd.edge_off[g + 1][:, None] - first_e) * gmask[:, None]
 
     r = torch.arange(n, device=dev)[None, :]                    # [1, n]
-    e = torch.arange(E, device=dev)[None, :]
-    evalid = (e < counts_e) & gmask[:, None]
-    epos = first_e + torch.where(evalid, e, 0)
+    if rel_caps is not None:
+        if dd.rel_start is None:
+            raise ValueError("assemble_dense(rel_caps=...) needs "
+                             "DeviceDataset(rel_sort=num_relations)")
+        rel_caps = tuple(int(c) for c in rel_caps)
+        if sum(rel_caps) != E or len(rel_caps) > dd.num_relations:
+            raise ValueError(f"rel_caps {rel_caps} must sum to edge_slot {E} over "
+                             f"at most {dd.num_relations} relations")
+        rel, local = dd.slot_maps(rel_caps)
+        starts = dd.rel_start[g]                                # [B, R + 1]
+        seg_start = starts[:, rel]
+        evalid = (local < starts[:, rel + 1] - seg_start) & gmask[:, None]
+        epos = first_e + torch.where(evalid, seg_start + local, 0)
+    else:
+        counts_e = (dd.edge_off[g + 1][:, None] - first_e) * gmask[:, None]
+        e = torch.arange(E, device=dev)[None, :]
+        evalid = (e < counts_e) & gmask[:, None]
+        epos = first_e + torch.where(evalid, e, 0)
     src_p = dd.src[epos].long()                                 # user-local
     dst_p = dd.dst[epos].long()                                 # num_u + item-local
 
@@ -100,7 +154,10 @@ def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,
 
     nidx = first_n + torch.where(nvalid, packed_local, 0)
     node_label = torch.where(nvalid, dd.node_label[nidx].int(), 0)
-    edge_type = torch.where(evalid, dd.etype[epos].int(), 0)
+    if rel_caps is not None:         # the relation is the position's
+        edge_type = rel.int().expand(len(gids), E)
+    else:
+        edge_type = torch.where(evalid, dd.etype[epos].int(), 0)
     y = torch.where(gmask, dd.y[g], 0.0)
     feat = lambda table: None if table is None else table[g] * gmask[:, None]
     return DenseBatch(node_label=node_label, edge_src=edge_src.int(),
@@ -108,7 +165,8 @@ def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,
                       node_mask=nvalid, edge_mask=evalid, y=y, graph_mask=gmask,
                       u_feat=feat(dd.u_feat), v_feat=feat(dd.v_feat),
                       num_u=None if num_u_slot is None else int(num_u_slot),
-                      edge_id=epos)
+                      edge_id=epos if dd.edge_id is None else dd.edge_id[epos],
+                      rel_caps=rel_caps)
 
 
 def live_rows(gid_block: np.ndarray) -> int:

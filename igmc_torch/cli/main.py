@@ -11,15 +11,18 @@ ml_10m, ml_25m's time split), side features (`--use-features`), the
 extraction engines (`--extract-backend auto|numpy|native`), static
 datasets, the IGMC model, and main's batch-mode and dense-layout rules,
 training, `--ensemble` and `--transfer`, with the same printed lines and
-`log.txt` lines. `--flat-aggregate pallas` runs the flat layout through
-the fused aggregate kernels.
+`log.txt` lines, and the main path's options: `--compute-dtype bfloat16`,
+`--dense-chunk N` (giant batches), `--dense-strategy adjacency` (unified
+layout only). `--flat-aggregate pallas` runs the flat layout through the
+fused aggregate kernels; `--flat-aggregate segment` and `auto` select no
+flat engine, so the dense layout runs, as in the JAX CLI.
 
 Flags whose code is not ported yet exit with a message naming the flag:
-`--parallel ep`, `--n-devices` > 1, `--dynamic-*`, `--dense-chunk`,
-`--compute-dtype bfloat16`, `--dense-strategy adjacency`, `--visualize`
-(it draws with matplotlib), `--profile-dir`, models other than igmc, and
-the segment and blocked flat engines; the Monti datasets (flixster,
-douban, yahoo_music) exit naming why. Datasets are held in memory: the
+`--parallel ep`, `--n-devices` > 1, `--dynamic-*`, `--visualize` (it
+draws with matplotlib), `--profile-dir`, models other than igmc, the
+blocked flat engine, and the flat layout without `--flat-aggregate pallas`
+(the segment engine); the Monti datasets (flixster, douban, yahoo_music)
+exit naming why. Datasets are held in memory: the
 JAX package's `.npz` subgraph cache and split pickle are not ported, so
 `--reprocess` and `--data-appendix` change nothing.
 `--compilation-cache-dir`, `--conv-strategy` and `--ep-local-aggregate`
@@ -122,7 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "into igmc_torch/kernels/build/)")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="R-GCN trunk compute dtype (float32 only so far)")
+                   help="dense R-GCN trunk compute dtype: bfloat16 messages "
+                        "with float32 sums (the flat kernels stay float32)")
     p.add_argument("--conv-strategy", default="auto",
                    choices=["auto", "dispatch", "basis-mix", "per-edge"],
                    help="relation transform of the flat segment engine")
@@ -137,10 +141,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flat-aggregate", default="auto",
                    choices=["auto", "segment", "blocked", "pallas"],
                    help="flat-layout R-GCN engine: 'pallas' = the fused "
-                        "aggregate kernels (CUDA here); forces batch-mode flat")
+                        "aggregate kernels (CUDA here), forces batch-mode flat; "
+                        "'segment' and auto name no engine (blocked and the "
+                        "segment engine itself are not ported)")
     p.add_argument("--dense-strategy", default="auto",
                    choices=["auto", "edge", "adjacency"],
-                   help="dense-layout aggregation (edge only so far). auto = edge")
+                   help="dense-layout aggregation: 'edge' = per-edge gathers "
+                        "and one scatter per layer; 'adjacency' = per-relation "
+                        "[B, R, n, n] adjacencies built once per forward and "
+                        "shared by all layers (unified layout only). auto = edge")
     p.add_argument("--dense-layout", default="auto",
                    choices=["auto", "unified", "bipartite"],
                    help="dense slot layout: 'unified' = one n-row slot per "
@@ -150,7 +159,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dense-buckets", type=int, default=3,
                    help="max dense slot shapes (batch-mode dense)")
     p.add_argument("--dense-chunk", type=int, default=0, metavar="N",
-                   help="giant-batch training (not ported yet); 0 = off")
+                   help="giant-batch training (batch-mode dense, static data, "
+                        "one device): ONE optimizer step per --batch-size "
+                        "graphs, streamed in N-graph slices whose gradients "
+                        "accumulate; eval in N-graph rows. 0 = off")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run: the CUDA card (default; raises "
                         "without one) or the CPU (plain PyTorch versions of "
@@ -165,15 +177,11 @@ def unported_flags(args) -> list:
         (args.n_devices > 1, f"--n-devices {args.n_devices}"),
         (args.dynamic_train or args.dynamic_test or args.dynamic_val
          or args.dynamic_dataset, "--dynamic-*"),
-        (args.dense_chunk != 0, "--dense-chunk"),
-        (args.compute_dtype != "float32", f"--compute-dtype {args.compute_dtype}"),
-        (args.dense_strategy == "adjacency", "--dense-strategy adjacency"),
         (args.visualize, "--visualize (it draws with matplotlib)"),
         (bool(args.profile_dir), "--profile-dir"),
         (args.model != "igmc", f"--model {args.model}"),
-        (args.flat_aggregate in ("segment", "blocked"),
-         f"--flat-aggregate {args.flat_aggregate}"),
-        (args.batch_mode == "flat" and args.flat_aggregate == "auto",
+        (args.flat_aggregate == "blocked", "--flat-aggregate blocked"),
+        (args.batch_mode == "flat" and args.flat_aggregate in ("auto", "segment"),
          "--batch-mode flat without --flat-aggregate pallas (the segment engine)"),
     ]
     return [flag for hit, flag in checks if hit]
@@ -295,16 +303,38 @@ def build_model(args, split, n_features=0):
                      force_undirected=args.force_undirected,
                      side_features=args.use_features,
                      n_side_features=n_features,
-                     multiply_by=multiply_by, aggr=args.aggr)
+                     multiply_by=multiply_by, aggr=args.aggr,
+                     dense_strategy=args.dense_strategy,
+                     compute_dtype=(None if args.compute_dtype == "float32"
+                                    else args.compute_dtype))
     model = IGMC(cfg, torch.Generator().manual_seed(args.seed))
     print(f"Total number of parameters is "
           f"{sum(p.numel() for p in model.parameters())}")
     return model
 
 
+def check_dense_chunk(args, batch_mode: str) -> None:
+    """The JAX CLI's exits on --dense-chunk, in its order. Its exits on
+    --dense-chunk with --dynamic-* or --n-devices > 1 have no counterpart:
+    unported_flags refuses those flags first."""
+    if not args.dense_chunk:
+        return
+    if args.dense_chunk < 1:
+        raise SystemExit(f"--dense-chunk must be a positive graph "
+                         f"count, got {args.dense_chunk}")
+    if batch_mode != "dense":
+        raise SystemExit("--dense-chunk needs the dense layout "
+                         "(conflicts with --batch-mode flat / "
+                         "--flat-aggregate)")
+    if args.dense_chunk < args.batch_size and args.batch_size % args.dense_chunk:
+        raise SystemExit(f"--dense-chunk ({args.dense_chunk}) must "
+                         f"divide --batch-size ({args.batch_size})")
+
+
 def choose_layouts(args, train_graphs):
     """(batch_mode, flat_aggregate, dense_layout) by the JAX CLI's rules,
-    printing its `batch mode: ...` and `dense layout: ... (auto)` lines."""
+    printing its `batch mode: ...` and `dense layout: ... (auto)` lines and
+    exiting as it does on --dense-chunk and --dense-strategy adjacency."""
     flat_aggregate = "pallas" if args.flat_aggregate == "pallas" else None
     batch_mode = args.batch_mode
     if flat_aggregate is not None:
@@ -313,18 +343,30 @@ def choose_layouts(args, train_graphs):
                              "dense (pick one layout)")
         batch_mode = "flat"
         print(f"batch mode: flat (--flat-aggregate {flat_aggregate})")
+    elif batch_mode == "auto" and args.dense_chunk:
+        batch_mode = "dense"
+        print("batch mode: dense (--dense-chunk)")
     elif batch_mode == "auto":
         batch_mode = "dense"
         print(f"batch mode: {batch_mode} (auto)")
+    check_dense_chunk(args, batch_mode)
+    adjacency = args.dense_strategy == "adjacency"
     dense_layout = args.dense_layout
-    if dense_layout == "bipartite" and batch_mode != "dense":
-        raise SystemExit("--dense-layout bipartite needs the device-resident "
-                         "dense path (batch-mode dense + static datasets)")
+    if dense_layout == "bipartite":
+        if batch_mode != "dense":
+            raise SystemExit("--dense-layout bipartite needs the device-resident "
+                             "dense path (batch-mode dense + static datasets)")
+        if adjacency:
+            raise SystemExit("--dense-strategy adjacency is unified-layout "
+                             "only (models/igmc.py); drop it or use "
+                             "--dense-layout unified")
     if dense_layout == "auto":
         # bipartite when the median training graph has >= 128 nodes, the
-        # JAX CLI's rule (ml_1m with --max-nodes-per-hop 100: bipartite)
+        # JAX CLI's rule (ml_1m with --max-nodes-per-hop 100: bipartite);
+        # the adjacency strategy keeps the unified layout
         nc = train_graphs.node_counts()
-        big = batch_mode == "dense" and len(nc) > 0 and float(np.median(nc)) >= 128
+        big = (batch_mode == "dense" and not adjacency and len(nc) > 0
+               and float(np.median(nc)) >= 128)
         dense_layout = "bipartite" if big else "unified"
         if batch_mode == "dense":
             print(f"dense layout: {dense_layout} (auto)")
@@ -371,11 +413,13 @@ def main(argv=None):
             continue_from=args.continue_from, res_dir=res.path, seed=args.seed,
             superbatch=args.superbatch, batch_mode=batch_mode,
             dense_buckets=args.dense_buckets, flat_aggregate=flat_aggregate,
-            dense_layout=dense_layout, device=device)
+            dense_chunk=args.dense_chunk, dense_layout=dense_layout,
+            device=device)
 
     ckpt_dir = args.transfer if args.transfer else res.path
     eval_kw = dict(batch_mode=batch_mode, flat_aggregate=flat_aggregate,
-                   dense_layout=dense_layout, device=device)
+                   dense_chunk=args.dense_chunk, dense_layout=dense_layout,
+                   device=device)
     if args.ensemble:
         if args.data_name == "ml_1m":
             start_epoch, end_epoch, interval = args.epochs - 15, args.epochs, 5

@@ -2,16 +2,24 @@
 
 Port of igmc_tpu/models/igmc.py (IGMCConfig, igmc_init, igmc_forward's
 flat branch with use_pallas and its dense branch _igmc_forward_dense,
-arr_regularizer): one-hot hop labels, 4 R-GCN layers with tanh, the states
-of the target user and target item from every layer, then relu(lin1),
-feature dropout 0.5 in training, and lin2, times `multiply_by`.
+chunk_dense_batch, igmc_forward_dense_chunked, arr_regularizer): one-hot
+hop labels, 4 R-GCN layers with tanh, the states of the target user and
+target item from every layer, then relu(lin1), feature dropout 0.5 in
+training, and lin2, times `multiply_by`.
 
   * Flat GraphBatch: every layer's aggregate runs through the fused
-    kernels (kernels/rgcn_aggregate.py); aggr mean or sum.
-  * DenseBatch (batching/dense.py): every layer is rgcn_dense_layer over
-    one DensePlan per forward (models/rgcn.py); the targets are slot rows
-    0 and 1 (unified) or 0 and num_u (bipartite); aggr mean, sum or
-    relmean.
+    kernels (kernels/rgcn_aggregate.py); aggr mean or sum. They compute in
+    float32 whatever `compute_dtype` says, as the JAX package's fused
+    aggregate does.
+  * DenseBatch (batching/dense.py): the targets are slot rows 0 and 1
+    (unified) or 0 and num_u (bipartite). A relation-slotted batch
+    (`rel_caps`) runs the relslot strategy, any other the edge strategy
+    (`dense_strategy` auto or edge: one DensePlan per forward; edge-k is
+    accepted as an alias of edge, for parity with the JAX package) or,
+    on the unified layout only, the adjacency strategy (one [B, R, n, n]
+    adjacency per forward); models/rgcn.py has the layers. aggr mean, sum
+    or relmean (edge), mean or sum (relslot, adjacency); `compute_dtype`
+    float32 or bfloat16.
 
 With `side_features`, the batch's target-user and target-item feature
 rows are concatenated after the target states, so lin1 takes
@@ -30,7 +38,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,10 +48,15 @@ from ..batching.batch import GraphBatch
 from ..batching.dense import DenseBatch
 from ..kernels.rgcn_aggregate import PLAN_ROWS, _dst_global, rgcn_aggregate
 from ..ops.dropout import edge_dropout_dense, feature_dropout, hash_edge_keep
-from .rgcn import RGCNConv, dense_plan, rgcn_dense_layer, uniform_
+from .rgcn import (RGCNConv, build_dense_adj, dense_adj_degrees, dense_plan,
+                   relslot_plan, resolve_compute_dtype, rgcn_dense_adj_apply,
+                   rgcn_dense_layer, uniform_)
 
 HIDDEN = 128           # lin1's width
 FEATURE_DROPOUT = 0.5  # dropout after relu(lin1) in training
+# auto = edge; edge-k = edge (the JAX package's per-basis scatters compute
+# the edge form's function, so the port runs the edge code for it)
+DENSE_STRATEGIES = ("auto", "edge", "edge-k", "adjacency")
 
 
 @dataclass(frozen=True)
@@ -58,6 +71,8 @@ class IGMCConfig:
     n_side_features: int = 0               # du + dv when side_features
     multiply_by: float = 1.0
     aggr: str = "mean"                     # mean/sum (flat), mean/sum/relmean (dense)
+    dense_strategy: str = "auto"           # DENSE_STRATEGIES
+    compute_dtype: Optional[str] = None    # None (float32) or "bfloat16": dense trunk
 
 
 def _linear(in_features: int, out_features: int,
@@ -116,7 +131,8 @@ class IGMC(nn.Module):
 
     def _flat_states(self, batch: GraphBatch, edge_seed) -> torch.Tensor:
         """[B, 2 * sum(latent)]: the target user's and target item's states
-        of every layer, through the fused aggregate."""
+        of every layer, through the fused aggregate, in float32 whatever
+        cfg.compute_dtype says (as the JAX package's fused aggregate)."""
         cfg = self.cfg
         if cfg.aggr not in ("mean", "sum"):
             raise NotImplementedError(f"aggregate kernel + aggr={cfg.aggr}")
@@ -152,13 +168,24 @@ class IGMC(nn.Module):
 
     def _dense_states(self, batch: DenseBatch, edge_noise) -> torch.Tensor:
         """[B, 2 * sum(latent)]: the target rows' states of every layer of
-        the dense trunk (one DensePlan for all layers)."""
+        the dense trunk, by the strategy the batch and the config select
+        (the dispatch of the JAX package's _igmc_forward_dense)."""
         cfg = self.cfg
+        if cfg.dense_strategy not in DENSE_STRATEGIES:
+            raise ValueError(f"unknown dense_strategy {cfg.dense_strategy!r} "
+                             f"({'|'.join(DENSE_STRATEGIES)})")
+        cd = resolve_compute_dtype(cfg.compute_dtype)
+        use_adj = cfg.dense_strategy == "adjacency"
+        if use_adj and (batch.num_u is not None or batch.rel_caps is not None):
+            raise NotImplementedError(
+                "dense_strategy='adjacency' is unified-layout only; the "
+                "bipartite/relslot layouts' cheaper one-hot work supersedes it")
         mask_f = mask_r = batch.edge_mask
         if self.training and cfg.adj_dropout > 0:
             if isinstance(edge_noise, tuple):          # injected keep masks
                 mask_f = batch.edge_mask & edge_noise[0]
-                mask_r = batch.edge_mask & edge_noise[1]
+                mask_r = (mask_f if edge_noise[1] is edge_noise[0]
+                          else batch.edge_mask & edge_noise[1])
             elif batch.edge_id is None:
                 raise ValueError("dense edge dropout needs the batch's packed "
                                  "edge ids (assemble_dense attaches them)")
@@ -168,13 +195,29 @@ class IGMC(nn.Module):
                     cfg.force_undirected)
         x = F.one_hot(batch.node_label.long(), cfg.num_features).float()
         x = x * batch.node_mask[..., None].float()
-        plan = dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type,
-                          mask_f, mask_r, batch.node_slot, cfg.num_relations,
-                          cfg.aggr)
+        n, R = batch.node_slot, cfg.num_relations
+        if use_adj:
+            # one build for every layer; masks tied across directions
+            # (eval, force_undirected) share one adjacency
+            adj_f = build_dense_adj(batch.edge_src, batch.edge_dst, batch.edge_type,
+                                    mask_f, R, n, cd)
+            adj_r = None if mask_r is mask_f else build_dense_adj(
+                batch.edge_src, batch.edge_dst, batch.edge_type, mask_r, R, n, cd)
+            inv_deg = dense_adj_degrees(adj_f, adj_r) if cfg.aggr == "mean" else None
+            layer = lambda conv, h: rgcn_dense_adj_apply(conv, h, adj_f, adj_r,
+                                                         cfg.aggr, cd, inv_deg)
+        else:
+            if batch.rel_caps is not None:
+                plan = relslot_plan(batch.edge_src, batch.edge_dst, batch.rel_caps,
+                                    mask_f, mask_r, n, R, cfg.aggr, cd)
+            else:
+                plan = dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type,
+                                  mask_f, mask_r, n, R, cfg.aggr, cd)
+            layer = lambda conv, h: rgcn_dense_layer(conv, h, plan)
         item_row = 1 if batch.num_u is None else batch.num_u
         users, items = [], []
         for conv in self.convs:
-            x = torch.tanh(rgcn_dense_layer(conv, x, plan))
+            x = torch.tanh(layer(conv, x))
             users.append(x[:, 0])
             items.append(x[:, item_row])
         return torch.cat(users + items, dim=1)
@@ -201,6 +244,44 @@ def draw_noise(generator: torch.Generator, batch_size: int):
     seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
     keep = torch.rand(batch_size, HIDDEN, generator=generator) >= FEATURE_DROPOUT
     return seed, keep
+
+
+def chunk_dense_batch(batch: DenseBatch, chunk: int) -> List[DenseBatch]:
+    """A DenseBatch of B graphs as B / chunk batches of `chunk` graphs each
+    (views of its tensors), in order. B must be a multiple of `chunk`."""
+    if batch.num_graphs % chunk != 0:
+        raise ValueError(f"num_graphs {batch.num_graphs} % chunk {chunk}")
+    return [batch.graphs(s, s + chunk) for s in range(0, batch.num_graphs, chunk)]
+
+
+def slice_noise(noise, start: int, stop: int):
+    """The training noise of graphs [start, stop) of a batch's: the edge
+    seed as it is (dense dropout is keyed on packed edge ids, so a graph's
+    edges drop alike in any slice), injected edge masks and feature_keep
+    cut to those graphs."""
+    if noise is None:
+        return None
+    edge, keep = noise
+    if isinstance(edge, tuple):
+        edge = tuple(m[start:stop] for m in edge)
+    return edge, keep[start:stop]
+
+
+def igmc_forward_dense_chunked(model: IGMC, batch: DenseBatch, chunk: int,
+                               noise=None) -> torch.Tensor:
+    """The model's predictions [B] of a giant DenseBatch, computed `chunk`
+    graphs at a time (chunk_dense_batch). The same function as one forward
+    over the whole batch, dropout included: its edge masks are keyed on
+    packed edge ids and each slice gets its rows of feature_keep
+    (slice_noise). The JAX package assigns per-chunk dropout streams.
+
+    This and chunk_dense_batch are the JAX package's API over a batch
+    already assembled whole; the giant-batch training step
+    (train/loop.py make_chunked_dense_train_step) assembles each slice
+    itself, so that a row is never held whole."""
+    return torch.cat([model(b, slice_noise(noise, s, s + chunk))
+                      for s, b in zip(range(0, batch.num_graphs, chunk),
+                                      chunk_dense_batch(batch, chunk))])
 
 
 def arr_regularizer(model: IGMC) -> torch.Tensor:

@@ -52,7 +52,9 @@ class Predictor:
     adj : scipy.sparse matrix (users x items), values = rating label + 1
         — the training adjacency convention of `SplitData.adj_train`.
     class_values : np.ndarray of the original rating values.
-    cfg : IGMCConfig the checkpoints were trained with.
+    cfg : IGMCConfig the checkpoints were trained with; its compute_dtype
+        and dense_strategy apply, as in the JAX Predictor (serving runs the
+        unified layout, so every strategy can serve).
     checkpoints : `.pth` paths; several = prediction-averaged ensemble,
         exactly like `--ensemble`.
     params : alternatively, one in-memory state_dict.

@@ -10,11 +10,14 @@ Port of igmc_tpu/train/loop.py on one device, in two layouts:
     ids. plan_dense_epoch is the JAX package's, so for one (seed, epoch,
     superbatch) the port steps through the same batches in the same order:
     one optimizer step per live row of each [K, B] unit, where the JAX
-    package scans the K rows in one dispatch.
+    package scans the K rows in one dispatch. With ``dense_chunk`` N (giant
+    batches) each row's step streams its graphs in N-graph slices,
+    accumulating the slices' gradients into one optimizer step, and
+    evaluation runs in N-graph rows.
   * flat (``batch_mode="flat"``): host-collated batches through the fused
     aggregate kernels, the JAX package's ``flat_aggregate="pallas"``.
 
-The other flat engines, dense_chunk and meshes are not ported yet and
+The other flat engines (segment, blocked) and meshes are not ported yet and
 raise. Sums stay on the device across batches and steps, an epoch's graph
 ids and noise masks are uploaded at once, and each epoch's train loss and
 each RMSE cost one host sync.
@@ -35,7 +38,7 @@ from ..batching.dataset import BatchLoader
 from ..batching.dense import plan_bipartite_buckets, plan_dense_buckets
 from ..batching.device_data import DeviceDataset, assemble_dense, live_rows
 from ..device import resolve_device
-from ..models.igmc import arr_regularizer, draw_noise
+from ..models.igmc import arr_regularizer, draw_noise, slice_noise
 from .checkpoints import checkpoint_path, load_checkpoint, load_optimizer_state
 
 
@@ -94,6 +97,52 @@ def make_train_step(model, optimizer, ARR: float = 0.0) -> Callable:
         loss.backward()
         optimizer.step()
         return loss.detach(), n
+
+    return step
+
+
+def make_dense_row_step(model, optimizer, chunk: int = 0,
+                        ARR: float = 0.0) -> Callable:
+    """(assemble, gids, noise) -> (loss, n): one optimizer step on a dense
+    row of graph ids `gids` [B], whose DenseBatch `assemble(gids)` builds.
+    With `chunk` (0 < chunk < B) the row streams in slices
+    (make_chunked_dense_train_step), else it is assembled whole
+    (make_train_step)."""
+    if chunk:
+        return make_chunked_dense_train_step(model, optimizer, chunk, ARR)
+    whole = make_train_step(model, optimizer, ARR)
+    return lambda assemble, gids, noise: whole(assemble(gids), noise)
+
+
+def make_chunked_dense_train_step(model, optimizer, chunk: int,
+                                  ARR: float = 0.0) -> Callable:
+    """(assemble, gids, noise) -> (loss, n) for a giant-batch row: the row's
+    graph ids `gids` [B] are cut into B / chunk slices; each slice is
+    assembled (`assemble(gids_slice)` -> DenseBatch), run forward and
+    backward with loss sse_slice / n_row, and freed before the next, the
+    gradients accumulating; ARR's gradient is added once; then one
+    optimizer step. The slices get their rows of feature_keep and the row's
+    edge seed (slice_noise), so the step equals make_train_step's on the
+    whole row, dropout included."""
+
+    def step(assemble, gids, noise):
+        optimizer.zero_grad(set_to_none=True)
+        n = (gids >= 0).sum().float().clamp_min(1.0)
+        sse = torch.zeros((), device=gids.device)
+        for s in range(0, gids.shape[0], chunk):
+            batch = assemble(gids[s:s + chunk])
+            preds = model(batch, slice_noise(noise, s, s + chunk))
+            part = (((preds - batch.y) ** 2) * batch.graph_mask.float()).sum()
+            (part / n).backward()
+            sse = sse + part.detach()
+            del batch, preds, part
+        loss = sse / n
+        if ARR != 0.0:
+            reg = ARR * arr_regularizer(model)
+            reg.backward()
+            loss = loss + reg.detach()
+        optimizer.step()
+        return loss, n
 
     return step
 
@@ -247,7 +296,11 @@ class DensePass:
     """One pass over a device-resident dataset: the live gid rows of a
     plan_dense_epoch plan in order, each row's bucket, and the rows as one
     [S, B] int64 tensor on the device (one upload per pass). All-(-1)
-    padding rows, which trail their unit, are dropped."""
+    padding rows, which trail their unit, are dropped.
+
+    `rel_caps` (plan_rel_caps over the dataset's graphs; the dataset built
+    with DeviceDataset(rel_sort=R)) assembles every bucket's rows on the
+    relation-slotted edge axis of sum(rel_caps) slots."""
     buckets: list
     bucket_of: List[int]
     gids: torch.Tensor
@@ -263,34 +316,44 @@ class DensePass:
         gids = torch.from_numpy(np.concatenate(rows).astype(np.int64))
         return cls(buckets, bucket_of, gids.to(device))
 
-    def batches(self, dd: DeviceDataset):
+    def assemble(self, dd: DeviceDataset, bucket: int, gids: torch.Tensor,
+                 rel_caps: Optional[tuple] = None):
+        """The DenseBatch of graph ids `gids` in bucket `bucket`'s slots."""
+        b = self.buckets[bucket]
+        edge_slot = b.edge_slot if rel_caps is None else sum(rel_caps)
+        return assemble_dense(dd, gids, b.node_slot, edge_slot, b.num_u_slot,
+                              rel_caps)
+
+    def batches(self, dd: DeviceDataset, rel_caps: Optional[tuple] = None):
         """The pass's DenseBatches, assembled on dd's device in order."""
         for i, bi in enumerate(self.bucket_of):
-            b = self.buckets[bi]
-            yield assemble_dense(dd, self.gids[i], b.node_slot, b.edge_slot,
-                                 b.num_u_slot)
+            yield self.assemble(dd, bi, self.gids[i], rel_caps)
 
 
 def dense_train_epoch(step_fn: Callable, dd: DeviceDataset, epoch: DensePass,
-                      generator: torch.Generator, dataset_size: int) -> float:
-    """One training pass, one step per live row with noise from
-    `generator` (draw_noise, drawn for the whole pass first and uploaded
-    at once); returns sum(loss * n) / dataset_size, one host sync."""
+                      generator: torch.Generator, dataset_size: int,
+                      rel_caps: Optional[tuple] = None) -> float:
+    """One training pass, one make_dense_row_step per live row with noise
+    from `generator` (draw_noise, drawn for the whole pass first and
+    uploaded at once); returns sum(loss * n) / dataset_size, one host
+    sync."""
     noise = [draw_noise(generator, epoch.gids.shape[1]) for _ in epoch.bucket_of]
     if not noise:
         return 0.0
     keeps = torch.stack([keep for _, keep in noise]).to(dd.device)
     total = None
-    for i, batch in enumerate(epoch.batches(dd)):
-        loss, n = step_fn(batch, (noise[i][0], keeps[i]))
+    for i, bi in enumerate(epoch.bucket_of):
+        assemble = lambda gids: epoch.assemble(dd, bi, gids, rel_caps)
+        loss, n = step_fn(assemble, epoch.gids[i], (noise[i][0], keeps[i]))
         total = loss * n if total is None else total + loss * n
     return float(total) / max(dataset_size, 1)
 
 
-def dense_eval_rmse(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass) -> float:
+def dense_eval_rmse(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
+                    rel_caps: Optional[tuple] = None) -> float:
     """RMSE over a dense pass; device-side sums, one host sync."""
     sse = cnt = None
-    for batch in epoch.batches(dd):
+    for batch in epoch.batches(dd, rel_caps):
         s, c, _ = eval_fn(batch)
         sse = s if sse is None else sse + s
         cnt = c if cnt is None else cnt + c
@@ -299,27 +362,34 @@ def dense_eval_rmse(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass) -> f
     return math.sqrt(float(sse) / max(float(cnt), 1.0))
 
 
-def dense_predict_all(eval_fn: Callable, dd: DeviceDataset,
-                      epoch: DensePass) -> np.ndarray:
+def dense_predict_all(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
+                      rel_caps: Optional[tuple] = None) -> np.ndarray:
     """Raw predictions in DATASET order from a dense pass, scattered back
     through each row's graph ids on the device and fetched once. Padding
     graphs write to a spare slot past the end."""
     G = len(dd)
     preds = torch.full((G + 1,), float("nan"), device=dd.device)
-    for gids, batch in zip(epoch.gids, epoch.batches(dd)):
+    for gids, batch in zip(epoch.gids, epoch.batches(dd, rel_caps)):
         _, _, p = eval_fn(batch)
         preds.index_copy_(0, torch.where(gids >= 0, gids, G), p)
     return preds[:G].cpu().numpy()
 
 
-def _check_layout(batch_mode: str, flat_aggregate, dense_chunk: int, what: str):
-    """Refuse an unknown batch_mode, and what is not ported: dense_chunk,
-    and flat engines other than the fused aggregate (which None means)."""
+def _no_flat_engine(batch_mode: str, flat_aggregate):
+    """flat_aggregate as the dense layout reads it: 'segment' and 'auto'
+    name no flat engine there, as in the JAX package. On the flat layout
+    they stay, and _check_layout refuses them (the segment engine is not
+    ported; None means the fused aggregate there)."""
+    if batch_mode == "dense" and flat_aggregate in ("segment", "auto"):
+        return None
+    return flat_aggregate
+
+
+def _check_layout(batch_mode: str, flat_aggregate, what: str):
+    """Refuse an unknown batch_mode, and what is not ported: flat engines
+    other than the fused aggregate (which None means)."""
     if batch_mode not in ("flat", "dense"):
         raise ValueError(f"unknown batch_mode {batch_mode!r} (flat|dense)")
-    if dense_chunk:
-        raise NotImplementedError(f"igmc_torch {what}: dense_chunk={dense_chunk} "
-                                  f"is not ported")
     if batch_mode == "flat" and flat_aggregate not in (None, "pallas"):
         raise NotImplementedError(f"igmc_torch {what}: the flat layout runs the "
                                   f"fused aggregate (flat_aggregate='pallas') "
@@ -345,19 +415,24 @@ def test_once(
     (`.pth` paths). Prints and returns the RMSE.
 
     `batch_mode` 'dense' evaluates on the device-resident dense layout
-    (`dense_layout` 'unified' or 'bipartite', 3 size buckets), unless a
-    `flat_aggregate` engine is named, which keeps the flat layout (and
-    says so), as the JAX package does. The flat layout runs the fused
-    aggregate. Runs on `device` (default "cuda"; raises without a CUDA
-    device unless device="cpu"). The caller's model is not modified."""
+    (`dense_layout` 'unified' or 'bipartite', 3 size buckets; rows of
+    `dense_chunk` graphs when that is below batch_size), unless a flat
+    engine is named in `flat_aggregate`, which keeps the flat layout (and
+    says so), as the JAX package does ('segment' and 'auto' name none
+    there). The flat layout runs the fused aggregate. Runs on `device`
+    (default "cuda"; raises without a CUDA device unless device="cpu").
+    The caller's model is not modified."""
+    flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
     if batch_mode == "dense" and flat_aggregate is not None:
         print("test_once: dense eval unavailable — flat_aggregate overrides "
               "the layout; using the flat path")
         batch_mode = "flat"
-    _check_layout(batch_mode, flat_aggregate, dense_chunk, "evaluation")
+    _check_layout(batch_mode, flat_aggregate, "evaluation")
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev).eval()
     if batch_mode == "dense":
+        if dense_chunk and dense_chunk < batch_size:
+            batch_size = dense_chunk
         dd = DeviceDataset(test_dataset.packed, dev)
         epoch = DensePass.plan(plan_buckets(test_dataset, dense_layout),
                                batch_size, 8, dev)
@@ -431,22 +506,35 @@ def train_multiple_epochs(
     (`dense_layout` 'unified' or 'bipartite', at most `dense_buckets` size
     buckets, the epoch planned in [superbatch, batch_size] units); 'flat'
     on host-collated flat batches through the fused aggregate kernels
-    (superbatch does not apply, as in the JAX package). Runs on `device`
-    (default "cuda"; raises without a CUDA device unless device="cpu").
-    dense_chunk, meshes and the other flat engines raise
-    NotImplementedError."""
-    _check_layout(batch_mode, flat_aggregate, dense_chunk, "training")
+    (superbatch does not apply, as in the JAX package). `flat_aggregate`
+    'segment' and 'auto' name no flat engine on the dense layout.
+    `dense_chunk` N (dense only; N >= batch_size means off, else N must
+    divide batch_size) takes each step over batch_size graphs streamed in
+    N-graph slices and evaluates in N-graph rows. Runs on `device` (default
+    "cuda"; raises without a CUDA device unless device="cpu"). Meshes and
+    the other flat engines raise NotImplementedError."""
+    flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
+    _check_layout(batch_mode, flat_aggregate, "training")
     if batch_mode == "dense" and flat_aggregate is not None:
         raise ValueError("flat_aggregate applies to batch_mode='flat'")
     if mesh is not None:
         raise NotImplementedError("igmc_torch training: mesh is not ported")
+    if dense_chunk and batch_mode != "dense":
+        raise ValueError("dense_chunk needs batch_mode='dense' on static "
+                         "(packed) datasets")
+    if dense_chunk >= batch_size:
+        dense_chunk = 0  # nothing to stream
+    elif dense_chunk and batch_size % dense_chunk:
+        raise ValueError(f"dense_chunk ({dense_chunk}) must divide "
+                         f"batch_size ({batch_size})")
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev)
     optimizer = make_optimizer(model.parameters(), lr, weight_decay)
     state = TrainState(model=model, optimizer=optimizer)
-    step_fn = make_train_step(model, optimizer, ARR)
-    eval_fn = make_eval_step(model)
     dense = batch_mode == "dense"
+    step_fn = (make_dense_row_step(model, optimizer, dense_chunk, ARR)
+               if dense else make_train_step(model, optimizer, ARR))
+    eval_fn = make_eval_step(model)
     if dense:
         K = max(superbatch, 1)
         dd_train = DeviceDataset(train_dataset.packed, dev)
@@ -454,7 +542,7 @@ def train_multiple_epochs(
         tr_buckets = plan_buckets(train_dataset, dense_layout, dense_buckets)
         test_pass = DensePass.plan(
             plan_buckets(test_dataset, dense_layout, dense_buckets),
-            batch_size, K, dev)
+            dense_chunk or batch_size, K, dev)
     else:
         train_loader = BatchLoader(train_dataset, batch_size, shuffle=True, seed=seed)
         test_loader = BatchLoader(test_dataset, batch_size)

@@ -4,7 +4,9 @@ cpu): the same `batch mode` and `dense layout` lines under each layout
 rule, a training run with --ensemble writing log.txt in the same format
 with RMSEs in a stated band, the files of a results directory, every
 unported flag refused by name, and ml_100k's official split with side
-features trained by both CLIs to RMSEs in a stated band."""
+features trained by both CLIs to RMSEs in a stated band. The main path's
+options (--compute-dtype, --dense-chunk, --dense-strategy, --flat-aggregate
+segment) are in test_torch_port_options.py."""
 
 import os
 import re
@@ -56,6 +58,12 @@ def run(which, argv, raw, cwd, monkeypatch, capsys):
     (["--flat-aggregate", "pallas"], ["batch mode: flat (--flat-aggregate pallas)"]),
     (["--batch-mode", "dense", "--dense-layout", "unified"], []),
     (["--dense-layout", "bipartite"], ["batch mode: dense (auto)"]),
+    (["--flat-aggregate", "segment"],           # no flat engine: dense, as in JAX
+     ["batch mode: dense (auto)", "dense layout: bipartite (auto)"]),
+    (["--dense-chunk", "5"],
+     ["batch mode: dense (--dense-chunk)", "dense layout: bipartite (auto)"]),
+    (["--dense-strategy", "adjacency"],         # auto keeps the unified layout
+     ["batch mode: dense (auto)", "dense layout: unified (auto)"]),
 ])
 def test_layout_lines_match_jax(raw, tmp_path, monkeypatch, capsys, flags, want):
     argv = BASE + ["--no-train", "--max-train-num", "60", "--max-test-num", "20"] + flags
@@ -106,17 +114,19 @@ def test_training_run_matches_jax_cli(raw, tmp_path, monkeypatch, capsys):
     (["--dynamic-train"], "--dynamic-*"),
     (["--dynamic-dataset"], "--dynamic-*"),
     (["--model", "dgcnn"], "--model dgcnn"),
-    (["--dense-chunk", "10"], "--dense-chunk"),
-    (["--compute-dtype", "bfloat16"], "--compute-dtype bfloat16"),
-    (["--dense-strategy", "adjacency"], "--dense-strategy adjacency"),
+    (["--batch-mode", "flat", "--flat-aggregate", "segment"], "segment engine"),
+    (["--dynamic-test"], "--dynamic-*"),
+    (["--dense-chunk", "10", "--parallel", "ep"], "--parallel ep"),
     (["--visualize"], "--visualize (it draws with matplotlib)"),
     (["--profile-dir", "p"], "--profile-dir"),
     (["--dynamic-val"], "--dynamic-*"),
     (["--model", "gnn"], "--model gnn"),
     (["--model", "dgcnn_rs"], "--model dgcnn_rs"),
-    (["--flat-aggregate", "segment"], "--flat-aggregate segment"),
+    (["--n-devices", "8", "--compute-dtype", "bfloat16"], "--n-devices 8"),
     (["--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
     (["--batch-mode", "flat"], "segment engine"),
+    (["--dense-chunk", "5", "--dynamic-train"], "--dynamic-*"),
+    (["--dense-chunk", "5", "--n-devices", "2"], "--n-devices 2"),
 ])
 def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -24,7 +24,9 @@ from igmc_tpu.ops.dropout import edge_dropout_dense as jax_edge_dropout_dense
 
 from igmc_torch.batching import DenseBatch
 from igmc_torch.models import (IGMC, IGMCConfig, RGCNConv, arr_regularizer,
-                               rgcn_dense_apply, rgcn_dense_bipartite_apply)
+                               build_dense_adj, rgcn_dense_adj_apply,
+                               rgcn_dense_apply, rgcn_dense_bipartite_apply,
+                               rgcn_dense_relslot_apply)
 from igmc_torch.ops import edge_dropout_dense, hash_edge_keep
 from igmc_torch.train import params_from_jax
 
@@ -100,19 +102,32 @@ def test_dense_layer_and_gradients_match_jax(bipartite, aggr, cin):
 
 
 def test_dense_layer_refuses_what_is_not_ported():
+    """bfloat16 and edge-k run (tests/test_torch_port_options.py holds them
+    against JAX); what stays refused: an unknown aggr or compute dtype, a
+    bipartite boundary outside the slot, relmean on the relation-slotted
+    and adjacency strategies, and mean adjacency without its degrees."""
     jb = to_port(jax_batch(False))
     conv = RGCNConv(4, 32, R, 4, torch.Generator().manual_seed(0))
     x = torch.zeros(B, N_SLOT, 4)
     args = (conv, x, jb.edge_src, jb.edge_dst, jb.edge_type, jb.edge_mask,
             jb.edge_mask)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        rgcn_dense_apply(*args, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="edge-k"):
-        rgcn_dense_apply(*args, per_basis=True)
+    for kw in ({"compute_dtype": "bfloat16"}, {"per_basis": True}):
+        assert torch.isfinite(rgcn_dense_apply(*args, **kw)).all()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        rgcn_dense_apply(*args, compute_dtype="float16")
     with pytest.raises(ValueError, match="aggr"):
         rgcn_dense_apply(*args, aggr="max")
     with pytest.raises(ValueError, match="num_u"):
         rgcn_dense_bipartite_apply(conv, x, N_SLOT, *args[2:])
+    with pytest.raises(ValueError, match="relslot"):
+        rgcn_dense_relslot_apply(conv, x, jb.edge_src, jb.edge_dst, (E_SLOT,),
+                                 jb.edge_mask, jb.edge_mask, "relmean")
+    adj = build_dense_adj(jb.edge_src, jb.edge_dst, jb.edge_type, jb.edge_mask,
+                          R, N_SLOT)
+    with pytest.raises(ValueError, match="adjacency"):
+        rgcn_dense_adj_apply(conv, x, adj, aggr="relmean")
+    with pytest.raises(ValueError, match="inv_deg"):
+        rgcn_dense_adj_apply(conv, x, adj, aggr="mean")
 
 
 def jax_cfg(**kw):

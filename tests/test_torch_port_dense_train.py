@@ -224,6 +224,8 @@ def test_dense_test_once_matches_jax(data, tmp_path, capsys, layout):
                      flat_aggregate="pallas", **kw)
     assert "using the flat path" in capsys.readouterr().out
     np.testing.assert_allclose(flat, got, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="segment"):
-        port_test_once(pds, port_model(template), BATCH, device="cpu",
-                       flat_aggregate="segment", **kw)
+    # 'segment' names no flat engine: the dense layout runs, as in JAX
+    seg = port_test_once(pds, port_model(template), BATCH, device="cpu",
+                         flat_aggregate="segment", **kw)
+    assert "using the flat path" not in capsys.readouterr().out
+    assert seg == got

@@ -299,15 +299,20 @@ def test_resume_checkpoints_and_log_format(data, monkeypatch, tmp_path):
 
 
 def test_train_multiple_epochs_refuses_what_is_not_ported(data, monkeypatch):
+    """The segment and blocked flat engines and meshes raise
+    NotImplementedError; dense_chunk off the dense layout raises the JAX
+    package's ValueError (it runs on the dense layout:
+    test_torch_port_chunk.py)."""
     args = (data["train"][1], data["test"][1],
             IGMC(port_cfg(), torch.Generator().manual_seed(0)), 1, BATCH, 1e-3,
             0.1, 50)
-    for kw, match in (({"flat_aggregate": "segment"}, "segment"),
-                      ({"batch_mode": "dense", "dense_chunk": 10}, "dense_chunk"),
-                      ({"mesh": object()}, "mesh"),
-                      ({"batch_mode": "dense", "mesh": object()}, "mesh"),
-                      ({"dense_chunk": 10}, "dense_chunk")):
-        with pytest.raises(NotImplementedError, match=match):
+    for kw, exc, match in (
+            ({"flat_aggregate": "segment"}, NotImplementedError, "segment"),
+            ({"flat_aggregate": "blocked"}, NotImplementedError, "blocked"),
+            ({"mesh": object()}, NotImplementedError, "mesh"),
+            ({"batch_mode": "dense", "mesh": object()}, NotImplementedError, "mesh"),
+            ({"dense_chunk": 10}, ValueError, "dense_chunk needs batch_mode='dense'")):
+        with pytest.raises(exc, match=match):
             train_multiple_epochs(*args, device="cpu", **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
