@@ -109,7 +109,28 @@ non-zero:
      the CLI on ml_100k with `--compute-dtype bfloat16 --dense-chunk 10
      --dense-strategy adjacency` in a subprocess (exit 0, the JAX CLI's
      `batch mode: dense (--dense-chunk)` and `dense layout: unified
-     (auto)`, finite RMSEs in log.txt).
+     (auto)`, finite RMSEs in log.txt);
+ 18. dynamic data, caches and JAX checkpoints: `DynamicGraphDataset`s of
+     the same 2,000 + 2,000 pairs (C++ engine), (a) dense training
+     (host-collated unified batches, K1/K2 0 launches) for 2 epochs with
+     prefetch 2 and with prefetch 0, each epoch's wall time and the host's
+     waiting share printed; the two runs again with deterministic scatters,
+     losses and RMSEs equal to 1e-6 relative; a host-collated step card vs
+     CPU (phase 7's tolerances; hash dropout on dynamic edge keys); the
+     step's CUDA-event time and an epoch's busy share with each prefetch;
+     host-collated predictions of phase 3's static test set equal to its
+     device-assembled ones (1e-5) and test_once's RMSE of the dynamic test
+     set equal to the static one's; (b) flat training through K1/K2 (plans
+     built on the prefetch threads) for 1 epoch, launches counted, held
+     against the CPU twin with the same noise (DYN_FLAT_RTOL); (c) ml_25m
+     data from `write_ml25m_format` cut to ML25M_CUT, loaded by the port's
+     time split (R = 10), 1 epoch of dynamic dense training, finite RMSE;
+     (d) a `StaticGraphDataset(root=...)` cache of 20,000 training pairs
+     written and loaded back equal (extraction, save and load seconds,
+     MiB); (f) the CLI with `--dynamic-dataset --profile-dir` on ml_100k for
+     2 epochs (the trace is of epoch 2, as in the JAX package): a non-empty
+     trace and finite RMSEs. The JAX `.ckpt` loader is host code that the
+     tier-1 tests hold against flax; this machine has no flax to write one.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -153,6 +174,15 @@ GRAD_TOL = 1e-4                  # card vs CPU training step
 BF16_LOSS_RTOL, BF16_GRAD_TOL = 1e-4, 1e-3
 GIANT_BATCH, GIANT_CHUNK = 1000, 50
 CHUNK_GRAD_TOL = 1e-5            # chunked vs whole-row step gradients
+# dynamic flat training, card against CPU with the same noise: each step
+# agrees to GRAD_TOL (phase 7); over one epoch of 40 Adam steps the mean
+# loss and the RMSE may drift further
+DYN_FLAT_RTOL = 1e-3
+# ml_25m-format data, cut from 162,541 users x 59,047 movies x 25,000,095
+# ratings so that writing and loading take well under a minute
+# (synthesize_ratings draws each user's items over all movies' weights)
+ML25M_CUT = dict(n_users=20_000, n_movies=8_000, n_ratings=1_000_000, seed=0)
+CACHE_PAIRS = 20_000             # ML-1M training pairs through the .npz cache
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
 BATCH_SIZE = 50                  # the CLI's default batch
 CPU_BATCHES = 5                  # batches held against the CPU plain path
@@ -1359,6 +1389,267 @@ def options_phase(split, cfg, ckpts, train_ds, test_ds, dtrain, dev, raw_data,
     return out
 
 
+def _dynamic_run(cfg, train, test, prefetch, epochs=EPOCHS, device="cuda", **kw):
+    """train_multiple_epochs of full-width IGMC (seed 3) on `train` /
+    `test`; returns (infos, state, wall seconds)."""
+    import torch
+    from igmc_torch.models import IGMC
+    from igmc_torch.train import train_multiple_epochs
+
+    infos = []
+    t0 = time.perf_counter()
+    _, state = train_multiple_epochs(
+        train, test, IGMC(cfg, torch.Generator().manual_seed(3)), epochs=epochs,
+        batch_size=BATCH_SIZE, lr=1e-3, lr_decay_factor=0.1, lr_decay_step_size=50,
+        ARR=0.001, seed=1, prefetch=prefetch, device=device,
+        logger=lambda info, s: infos.append(dict(info)), **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = [v for i in infos for v in (i["train_loss"], i["test_rmse"])]
+    if len(infos) != epochs or not all(math.isfinite(v) for v in vals):
+        fail(f"dynamic training ({kw}, prefetch {prefetch}) gave {infos}")
+    return infos, state, wall
+
+
+def dynamic_phase(split, cfg, test_ds, dense_ckpts, dev, raw_data, work,
+                  reset_counts, read_counts, expect):
+    """Phase 18: dynamic data (dense host-collated and flat through K1/K2),
+    ml_25m-format data, the subgraph cache and the CLI with
+    --dynamic-dataset --profile-dir. Returns the numbers it measured."""
+    from dataclasses import replace
+
+    import torch
+    from igmc_torch.batching import (BatchLoader, DeviceDataset,
+                                     DynamicGraphDataset, StaticGraphDataset)
+    from igmc_torch.data import create_trainvaltest_split, write_ml25m_format
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.train import (DensePass, dense_predict_all, load_checkpoint,
+                                  make_eval_step, make_optimizer, make_train_step,
+                                  plan_buckets, predict_all, test_once, train_epoch)
+
+    out = {}
+    layers = len(cfg.latent_dim)
+    kw = dict(h=1, max_nodes_per_hop=100, class_values=split.class_values,
+              max_num=MAX_NUM, backend="native")
+    train_dyn = DynamicGraphDataset(
+        split.adj_train, (split.train_u_indices, split.train_v_indices),
+        split.train_labels, **kw)
+    test_dyn = DynamicGraphDataset(
+        split.adj_train, (split.test_u_indices, split.test_v_indices),
+        split.test_labels, **kw)
+
+    # ---- (a) dynamic dense training ----------------------------------------
+    dense_kw = dict(batch_mode="dense", dense_layout="unified")
+    runs = {}
+    for prefetch in (2, 0):
+        reset_counts()
+        infos, state, wall = _dynamic_run(cfg, train_dyn, test_dyn, prefetch,
+                                          **dense_kw)
+        read_counts(f"dynamic_dense_p{prefetch}")
+        expect(f"dynamic_dense_p{prefetch}", "rgcn_aggregate_fwd", 0)
+        expect(f"dynamic_dense_p{prefetch}", "rgcn_aggregate_bwd", 0)
+        runs[prefetch] = infos
+        out[f"dense_prefetch{prefetch}"] = {"wall_s": wall, "epochs": [
+            {"seconds": h["seconds"], "host_seconds": h["host_seconds"],
+             "train_loss": i["train_loss"], "test_rmse": i["test_rmse"]}
+            for i, h in zip(infos, state.history)]}
+        for info, h in zip(infos, state.history):
+            print(f"[dynamic] dense, prefetch {prefetch}, epoch {info['epoch']}: "
+                  f"train loss {info['train_loss']:.6f}, test rmse "
+                  f"{info['test_rmse']:.6f}; {h['seconds']:.3f} s wall, host "
+                  f"(waiting for extraction + collation) {h['host_seconds']:.3f} s "
+                  f"({h['host_seconds'] / h['seconds']:.3f} of it)")
+        losses = [i["train_loss"] for i in infos]
+        if not losses[1] < losses[0]:
+            fail(f"dynamic dense: epoch 2's loss {losses[1]} is not below {losses[0]}")
+    # the same run serially and with prefetch: the same batches and noise;
+    # scatters made deterministic so the two runs are the same arithmetic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = {p: _dynamic_run(cfg, train_dyn, test_dyn, p, **dense_kw)[0]
+               for p in (2, 0)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(det[2], det[0])
+                for k in ("train_loss", "test_rmse"))
+    loose = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+                for a, b in zip(runs[2], runs[0]))
+    print(f"[dynamic] prefetch 2 vs 0, deterministic scatters: losses and RMSEs "
+          f"max relative diff {worst:.3e} (limit 1e-6); without them, losses "
+          f"{loose:.3e}")
+    if not worst <= 1e-6:
+        fail(f"dynamic dense training with prefetch 2 differs from prefetch 0 by "
+             f"{worst} relative")
+    out["prefetch_loss_rel_diff"] = worst
+
+    loader = BatchLoader(train_dyn, BATCH_SIZE, shuffle=True, seed=1,
+                         batch_mode="dense", pin_memory=True)
+    loader.epoch = 1
+    host_batches = list(loader)
+    card_vs_cpu_step(cfg, host_batches[0], "dynamic, card vs CPU")
+    dev_batches = [b.to(dev) for b in host_batches]
+    noise_gen = torch.Generator().manual_seed(4)
+    noises = [(s, k.to(dev)) for s, k in
+              (draw_noise(noise_gen, BATCH_SIZE) for _ in dev_batches)]
+    m = IGMC(cfg, torch.Generator().manual_seed(3)).to(dev).train()
+    step = make_train_step(m, make_optimizer(m.parameters(), 1e-3), 0.001)
+
+    def steps_all():
+        for b, nz in zip(dev_batches, noises):
+            step(b, nz)
+
+    steps_all()
+    out["dense_step_ms"] = cuda_ms(steps_all, 1, warmup=0) / len(dev_batches)
+    slots = sorted({(b.node_slot, b.edge_slot) for b in host_batches})
+    print(f"[dynamic] host-collated dense step {out['dense_step_ms']:.4f} ms "
+          f"(forward + backward + Adam, batch on the card), CUDA events over "
+          f"{len(dev_batches)} batches; slot shapes (nodes, edges) {slots}")
+    for prefetch in (2, 0):
+        ld = BatchLoader(train_dyn, BATCH_SIZE, shuffle=True, seed=1,
+                         batch_mode="dense", prefetch=prefetch, pin_memory=True)
+        gen = torch.Generator().manual_seed(5)
+        m.train()
+        _, busy_ms, window_ms = profile(
+            lambda: train_epoch(step, ld, gen, len(train_dyn), dev),
+            f"dynamic dense epoch, prefetch {prefetch}", f"{len(ld)} steps")
+        out[f"dense_prefetch{prefetch}"]["busy_share"] = busy_ms / window_ms
+
+    model = _model(cfg, load_checkpoint(dense_ckpts[0]), dev)
+    eval_fn = make_eval_step(model)
+    host, _ = predict_all(eval_fn, BatchLoader(test_ds, BATCH_SIZE, batch_mode="dense",
+                                               pin_memory=True), dev)
+    device = dense_predict_all(eval_fn, DeviceDataset(test_ds.packed, dev),
+                               DensePass.plan(plan_buckets(test_ds, "unified"),
+                                              BATCH_SIZE, 8, dev))
+    diff = float(np.abs(host - device).max())
+    template = IGMC(cfg, torch.Generator().manual_seed(0))
+    r_static = test_once(test_ds, template, BATCH_SIZE, params=load_checkpoint(
+        dense_ckpts[0]), batch_mode="dense", dense_layout="unified", device="cuda")
+    r_dyn = test_once(test_dyn, template, BATCH_SIZE, params=load_checkpoint(
+        dense_ckpts[0]), batch_mode="dense", dense_layout="unified", device="cuda")
+    print(f"[dynamic] host-collated vs device-assembled unified predictions of the "
+          f"static test set ({len(host)} pairs): max abs diff {diff:.3e} (atol 1e-5); "
+          f"test_once RMSE dynamic {r_dyn:.6f}, static {r_static:.6f}")
+    if not diff <= 1e-5 or abs(r_dyn - r_static) > 1e-5:
+        fail(f"host-collated predictions differ from device-assembled ones by "
+             f"{diff} (RMSE {r_dyn} vs {r_static})")
+    out["host_vs_device_pred_diff"] = diff
+
+    # ---- (b) dynamic flat training through K1 / K2 -------------------------
+    flat_kw = dict(batch_mode="flat", flat_aggregate="pallas", epochs=1)
+    reset_counts()
+    infos, state, wall = _dynamic_run(cfg, train_dyn, test_dyn, 2, **flat_kw)
+    read_counts("dynamic_flat")
+    steps = len(BatchLoader(train_dyn, BATCH_SIZE))
+    expect("dynamic_flat", "rgcn_aggregate_fwd",
+           layers * (steps + len(BatchLoader(test_dyn, BATCH_SIZE))))
+    expect("dynamic_flat", "rgcn_aggregate_bwd", layers * steps)
+    h = state.history[0]
+    t0 = time.perf_counter()
+    cpu_infos = _dynamic_run(cfg, train_dyn, test_dyn, 2, device="cpu", **flat_kw)[0]
+    cpu_s = time.perf_counter() - t0
+    rel = max(abs(infos[0][k] - cpu_infos[0][k]) / abs(cpu_infos[0][k])
+              for k in ("train_loss", "test_rmse"))
+    print(f"[dynamic] flat (K1 + K2, plans built on the prefetch threads), 1 epoch "
+          f"of {steps} steps: train loss {infos[0]['train_loss']:.6f}, test rmse "
+          f"{infos[0]['test_rmse']:.6f}; {h['seconds']:.3f} s wall, host "
+          f"{h['host_seconds']:.3f} s; CPU twin (plain versions, same noise) "
+          f"{cpu_infos[0]['train_loss']:.6f} / {cpu_infos[0]['test_rmse']:.6f} in "
+          f"{cpu_s:.1f} s: max relative diff {rel:.3e} (limit {DYN_FLAT_RTOL})")
+    if not rel <= DYN_FLAT_RTOL:
+        fail(f"dynamic flat training on the card differs from the CPU by {rel}")
+    out["flat"] = {"seconds": h["seconds"], "host_seconds": h["host_seconds"],
+                   "card_vs_cpu_rel": rel}
+
+    # ---- (c) ml_25m-format data ----------------------------------------------
+    root25 = os.path.join(work, "raw25m")
+    t0 = time.perf_counter()
+    write_ml25m_format(root25, **ML25M_CUT)
+    write_s = time.perf_counter() - t0
+    old_raw = os.environ.get("IGMC_RAW_DATA")
+    os.environ["IGMC_RAW_DATA"] = root25
+    try:
+        t0 = time.perf_counter()
+        s25 = create_trainvaltest_split("ml_25m", testing=True, verbose=False)
+        load_s = time.perf_counter() - t0
+    finally:
+        os.environ["IGMC_RAW_DATA"] = old_raw
+    R25 = len(s25.class_values)
+    n_all = len(s25.train_labels) + len(s25.test_labels)
+    print(f"[dynamic] ml_25m format {ML25M_CUT}: written in {write_s:.2f} s, loaded "
+          f"and split by time in {load_s:.2f} s; {n_all} ratings, R = {R25} "
+          f"({s25.class_values.tolist()}), {len(s25.train_labels)} training "
+          f"(train + val) and {len(s25.test_labels)} test links")
+    if R25 != 10 or len(s25.test_labels) != n_all - int(n_all * 0.8):
+        fail(f"ml_25m: R = {R25}, {len(s25.test_labels)} test links of {n_all}")
+    kw25 = dict(kw, class_values=s25.class_values)
+    tr25 = DynamicGraphDataset(s25.adj_train, (s25.train_u_indices,
+                               s25.train_v_indices), s25.train_labels, **kw25)
+    te25 = DynamicGraphDataset(s25.adj_train, (s25.test_u_indices,
+                               s25.test_v_indices), s25.test_labels, **kw25)
+    infos, state, wall = _dynamic_run(replace(cfg, num_relations=R25), tr25, te25, 2,
+                                      epochs=1, **dense_kw)
+    print(f"[dynamic] ml_25m dynamic dense, 1 epoch of {len(tr25)} pairs: train loss "
+          f"{infos[0]['train_loss']:.6f}, test rmse {infos[0]['test_rmse']:.6f} over "
+          f"{len(te25)} pairs; {wall:.2f} s")
+    out["ml25m"] = {"write_s": write_s, "load_s": load_s, "ratings": n_all,
+                    "rmse": infos[0]["test_rmse"], "train_s": wall}
+
+    # ---- (d) the subgraph cache ----------------------------------------------
+    root = os.path.join(work, "cache", "train")
+    ckw = dict(kw, max_num=CACHE_PAIRS, root=root)
+    links = (split.train_u_indices, split.train_v_indices)
+    t0 = time.perf_counter()
+    first = StaticGraphDataset(split.adj_train, links, split.train_labels, **ckw)
+    build_s = time.perf_counter() - t0
+    mib = os.path.getsize(first.cache_path) / 2**20
+    t0 = time.perf_counter()
+    again = StaticGraphDataset(split.adj_train, links, split.train_labels, **ckw)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    StaticGraphDataset(split.adj_train, links, split.train_labels,
+                       **dict(ckw, root=None))
+    extract_s = time.perf_counter() - t0
+    for k in ("node_offsets", "edge_offsets", "node_label", "src", "dst", "etype",
+              "num_u", "y"):
+        a, b = getattr(first.packed, k), getattr(again.packed, k)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"the subgraph cache's {k} did not load back equal")
+    raw_mib = sum(getattr(first.packed, k).nbytes for k in
+                  ("node_label", "src", "dst", "etype")) / 2**20
+    print(f"[dynamic] subgraph cache of {CACHE_PAIRS} ML-1M training pairs "
+          f"({os.path.basename(first.cache_path)}): extraction {extract_s:.2f} s, "
+          f"extraction + save {build_s:.2f} s (save {build_s - extract_s:.2f} s), "
+          f"load {load_s:.2f} s; {mib:.1f} MiB on disk for {raw_mib:.1f} MiB of "
+          f"arrays; loaded arrays equal")
+    out["cache"] = {"pairs": CACHE_PAIRS, "extract_s": extract_s,
+                    "save_s": build_s - extract_s, "load_s": load_s, "mib": mib,
+                    "raw_mib": raw_mib}
+
+    # ---- (f) the CLI with --dynamic-dataset --profile-dir --------------------
+    cwd = os.path.join(work, "dynamic_cli")
+    os.makedirs(cwd)
+    prof_dir = os.path.join(cwd, "prof")
+    cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "ml_100k",
+           "--testing", "--dynamic-dataset", "--epochs", "2", "--profile-dir",
+           prof_dir]
+    lines = _subprocess(cmd, raw_data, cwd, "cli dynamic")[0]
+    trace = os.path.join(prof_dir, "epoch2.trace.json")
+    size = os.path.getsize(trace) if os.path.isfile(trace) else 0
+    if not size or f"torch.profiler trace of epoch 2 written to {prof_dir}" not in lines:
+        fail(f"the dynamic CLI wrote no trace ({trace}: {size} bytes)")
+    log_path = os.path.join(cwd, "results", "ml_100k_testmode", "log.txt")
+    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
+    if len(log) != 2 or not all(math.isfinite(float(l.split()[-1])) for l in log):
+        fail(f"the dynamic CLI's log.txt reads {log}")
+    for line in log:
+        print(f"[cli dynamic] log.txt: {line}")
+    print(f"[cli dynamic] trace {os.path.basename(trace)}: {size / 2**20:.1f} MiB")
+    out["cli_trace_mib"] = size / 2**20
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--raw-data", default=os.environ.get("IGMC_RAW_DATA")
@@ -1667,11 +1958,18 @@ def main() -> None:
                                     dev, args.raw_data, cwd_options, reset_counts,
                                     read_counts, expect)
 
+        # ---- 18. dynamic data, caches and JAX checkpoints ------------------------
+        with phase("dynamic"):
+            dynamic = dynamic_phase(split, cfg, test_ds, dense_ckpts, dev,
+                                    args.raw_data, work, reset_counts, read_counts,
+                                    expect)
+
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches["train"][name] + launches["features"][name],
+            "launches": sum(launches[p][name]
+                            for p in ("train", "features", "dynamic_flat")),
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": err, "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
@@ -1696,6 +1994,7 @@ def main() -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in phase.seconds.items()) + ")")
     print(f"[serve] timings: {json.dumps(serve_times)}")
     print(f"[options] numbers: {json.dumps(options)}")
+    print(f"[dynamic] numbers: {json.dumps(dynamic)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

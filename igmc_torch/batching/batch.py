@@ -64,15 +64,17 @@ class GraphBatch:
     def num_edges(self) -> int:
         return self.edge_src.shape[0]
 
-    def to(self, device) -> "GraphBatch":
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
         """A copy with every tensor (the aligned plans included) on `device`."""
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, tuple):
-                moved[f.name] = tuple(a.to(device) for a in v)
+                moved[f.name] = tuple(a.to(device, non_blocking=non_blocking)
+                                      for a in v)
             else:
-                moved[f.name] = None if v is None else v.to(device)
+                moved[f.name] = (None if v is None
+                                 else v.to(device, non_blocking=non_blocking))
         return GraphBatch(**moved)
 
 

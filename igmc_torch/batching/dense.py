@@ -24,11 +24,13 @@ in [off_r, off_r + count_r), off_r = sum(caps[:r]), and every position of
 the segment, padding included, carries relation r (models/rgcn.py
 relslot_plan reads the relation from the position).
 
-Batches built on the device (batching/device_data.py assemble_dense) also
-carry `edge_id`, each stored edge's index in the packed dataset tables:
-the training forward keys its hash edge dropout on it (ops/dropout.py
-edge_dropout_dense), so the same edges drop whatever batch a graph lands
-in. collate_dense builds no such ids.
+Batches carry `edge_id`, the key of each stored edge's hash edge dropout
+in the training forward (ops/dropout.py edge_dropout_dense), so the same
+edges drop whatever batch a graph lands in: on the device
+(batching/device_data.py assemble_dense) each edge's index in the packed
+dataset tables; on the host (collate_dense with the graphs' dataset ids)
+the same packed index for a static dataset, and for a dynamic one
+gid * DYNAMIC_EDGE_STRIDE + the edge's position in its graph.
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ import torch
 
 from ..graphs.extract import Subgraph
 from .batch import _feature_tables
+
+# Host-collated edge keys of a dynamic dataset (no packed tables): graph
+# gid's edge j is gid * stride + j, distinct for every (gid, j) while a
+# graph has fewer than 2**31 forward edges.
+DYNAMIC_EDGE_STRIDE = 1 << 31
 
 
 @dataclass
@@ -74,10 +81,10 @@ class DenseBatch:
     def edge_slot(self) -> int:
         return self.edge_src.shape[-1]
 
-    def to(self, device) -> "DenseBatch":
+    def to(self, device, non_blocking: bool = False) -> "DenseBatch":
         """A copy with every tensor on `device`."""
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
@@ -106,14 +113,20 @@ def slot_perm(num_u: int, num_nodes: int) -> np.ndarray:
 
 def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
                   edge_slot: int, num_u_slot: Optional[int] = None,
-                  rel_caps: Optional[tuple] = None) -> DenseBatch:
+                  rel_caps: Optional[tuple] = None, gids=None,
+                  edge_offsets: Optional[np.ndarray] = None) -> DenseBatch:
     """Pack subgraphs one per slot (CPU tensors); slots must fit every graph.
 
     With `num_u_slot`, pack the bipartite layout: users keep their
     extraction order in rows [0, num_u_slot), items theirs in rows
     [num_u_slot, node_slot). With `rel_caps` (R capacities summing to
     edge_slot), pack the relation-slotted edge axis: relation r's edges in
-    their extraction order from sum(caps[:r])."""
+    their extraction order from sum(caps[:r]).
+
+    With `gids`, the graphs' dataset indices, attach `edge_id`: edge j of
+    graph gid gets edge_offsets[gid] + j (a static dataset's packed
+    offsets: the id assemble_dense gives it) or, without `edge_offsets`,
+    gid * DYNAMIC_EDGE_STRIDE + j. Padding slots get 0."""
     B, n, E = num_graphs, node_slot, edge_slot
     if len(graphs) > B:
         raise ValueError(f"{len(graphs)} graphs > batch size {B}")
@@ -131,6 +144,12 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
     y = np.zeros(B, dtype=np.float32)
     graph_mask = np.zeros(B, dtype=bool)
     u_feat, v_feat = _feature_tables(graphs, B)
+    edge_id = None
+    if gids is not None:
+        gids = np.asarray(gids, dtype=np.int64)
+        base = (gids * DYNAMIC_EDGE_STRIDE if edge_offsets is None
+                else np.asarray(edge_offsets, dtype=np.int64)[gids])
+        edge_id = np.zeros((B, E), dtype=np.int64)
 
     for gi, g in enumerate(graphs):
         nn, ne = g.num_nodes, len(g.src)
@@ -168,6 +187,8 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
         edge_dst[gi, epos] = perm[g.dst]
         edge_type[gi, epos] = g.etype
         edge_mask[gi, epos] = True
+        if edge_id is not None:
+            edge_id[gi, epos] = base[gi] + np.arange(ne)
         y[gi] = g.y
         graph_mask[gi] = True
         if u_feat is not None:
@@ -185,7 +206,8 @@ def collate_dense(graphs: Sequence[Subgraph], num_graphs: int, node_slot: int,
                       graph_mask=t(graph_mask),
                       u_feat=None if u_feat is None else t(u_feat),
                       v_feat=None if v_feat is None else t(v_feat),
-                      num_u=num_u_slot, rel_caps=rel_caps)
+                      num_u=num_u_slot, rel_caps=rel_caps,
+                      edge_id=None if edge_id is None else t(edge_id))
 
 
 def plan_rel_caps(etypes: Sequence[np.ndarray], num_relations: int,

@@ -7,24 +7,30 @@ Port of igmc_tpu/cli/main.py: the same argparse surface and defaults
 (plus `--device`, the counterpart of JAX's platform selection; default the
 CUDA card, which must be present), rating_maps, the MovieLens splits
 (ml_100k's official u1.base / u1.test split, the random split of ml_1m and
-ml_10m, ml_25m's time split), side features (`--use-features`), the
-extraction engines (`--extract-backend auto|numpy|native`), static
-datasets, the IGMC model, and main's batch-mode and dense-layout rules,
-training, `--ensemble` and `--transfer`, with the same printed lines and
-`log.txt` lines, and the main path's options: `--compute-dtype bfloat16`,
-`--dense-chunk N` (giant batches), `--dense-strategy adjacency` (unified
-layout only). `--flat-aggregate pallas` runs the flat layout through the
-fused aggregate kernels; `--flat-aggregate segment` and `auto` select no
-flat engine, so the dense layout runs, as in the JAX CLI.
+ml_10m and ml_25m's time split, with the split pickle
+`raw_data/<name>/[withfeatures_]split_seed<S>.pickle`), side features
+(`--use-features`), the extraction engines (`--extract-backend
+auto|numpy|native`), the datasets under
+`data/<name><--data-appendix>/<testmode|valmode>/<train|val|test>`:
+static ones with the JAX package's `.npz` subgraph cache, or extracted on
+the fly per split (`--dynamic-train/-val/-test`, `--dynamic-dataset` for
+all three; `--reprocess` removes the caches and rewrites the split
+pickle), the IGMC model, and main's batch-mode and dense-layout rules,
+training, `--ensemble` and `--transfer` (from `.pth` or the JAX
+package's `.ckpt` checkpoints), `--profile-dir` (a torch.profiler trace
+of the second epoch), with the same printed lines and `log.txt` lines,
+and the main path's options: `--compute-dtype bfloat16`, `--dense-chunk N`
+(giant batches, static data), `--dense-strategy adjacency` (unified
+layout only). Dynamic data runs the dense layout host-collated (unified
+slots). `--flat-aggregate pallas` runs the flat layout through the fused
+aggregate kernels; `--flat-aggregate segment` and `auto` select no flat
+engine, so the dense layout runs, as in the JAX CLI.
 
 Flags whose code is not ported yet exit with a message naming the flag:
-`--parallel ep`, `--n-devices` > 1, `--dynamic-*`, `--visualize` (it
-draws with matplotlib), `--profile-dir`, models other than igmc, the
-blocked flat engine, and the flat layout without `--flat-aggregate pallas`
-(the segment engine); the Monti datasets (flixster, douban, yahoo_music)
-exit naming why. Datasets are held in memory: the
-JAX package's `.npz` subgraph cache and split pickle are not ported, so
-`--reprocess` and `--data-appendix` change nothing.
+`--parallel ep`, `--n-devices` > 1, `--visualize` (it draws with
+matplotlib), models other than igmc, the blocked flat engine, and the
+flat layout without `--flat-aggregate pallas` (the segment engine); the
+Monti datasets (flixster, douban, yahoo_music) exit naming why.
 `--compilation-cache-dir`, `--conv-strategy` and `--ep-local-aggregate`
 are accepted and change nothing here (the port compiles no XLA programs,
 and the other two select engines of paths not ported).
@@ -35,6 +41,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import shutil
 
 import numpy as np
 
@@ -51,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use a small number of data for debugging")
     p.add_argument("--data-name", default="ml_100k", help="dataset name")
     p.add_argument("--data-appendix", default="",
-                   help="appendix to dataset save-names (no dataset cache here)")
+                   help="appendix to dataset save-names")
     p.add_argument("--save-appendix", default="",
                    help="appendix to result save-names")
     p.add_argument("--max-train-num", type=int, default=None)
@@ -61,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-seed", type=int, default=1234, metavar="S",
                    help="data shuffle seed (ml_1m, ml_10m)")
     p.add_argument("--reprocess", action="store_true", default=False,
-                   help="reprocess data (there is no cache to reuse here)")
+                   help="reprocess data instead of using the caches")
     p.add_argument("--dynamic-train", action="store_true", default=False)
     p.add_argument("--dynamic-test", action="store_true", default=False)
     p.add_argument("--dynamic-val", action="store_true", default=False)
@@ -117,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(native, built with g++ on first use), NumPy, or "
                         "auto = native if it builds, else numpy")
     p.add_argument("--profile-dir", default="",
-                   help="profiler trace of one epoch (not ported yet)")
+                   help="write a torch.profiler trace of the second "
+                        "training epoch into this directory")
     p.add_argument("--compilation-cache-dir",
                    default=os.environ.get("IGMC_TPU_COMPILATION_CACHE", ""),
                    help="the JAX package's XLA compilation cache; accepted, "
@@ -175,10 +183,7 @@ def unported_flags(args) -> list:
     checks = [
         (args.parallel == "ep", "--parallel ep"),
         (args.n_devices > 1, f"--n-devices {args.n_devices}"),
-        (args.dynamic_train or args.dynamic_test or args.dynamic_val
-         or args.dynamic_dataset, "--dynamic-*"),
         (args.visualize, "--visualize (it draws with matplotlib)"),
-        (bool(args.profile_dir), "--profile-dir"),
         (args.model != "igmc", f"--model {args.model}"),
         (args.flat_aggregate == "blocked", "--flat-aggregate blocked"),
         (args.batch_mode == "flat" and args.flat_aggregate in ("auto", "segment"),
@@ -229,8 +234,12 @@ def load_split(args, rating_map, post_rating_map):
         print("Using official MovieLens split u1.base/u1.test with 20% validation...")
         return load_official_trainvaltest_split(
             args.data_name, args.testing, rating_map, post_rating_map, args.ratio)
-    return create_trainvaltest_split(args.data_name, args.data_seed, args.testing,
-                                     True, rating_map, post_rating_map, args.ratio)
+    prefix = "withfeatures_" if args.use_features else ""
+    datasplit_path = os.path.join("raw_data", args.data_name,
+                                  f"{prefix}split_seed{args.data_seed}.pickle")
+    return create_trainvaltest_split(
+        args.data_name, args.data_seed, args.testing, datasplit_path,
+        not args.reprocess, True, rating_map, post_rating_map, args.ratio)
 
 
 def side_features(args, split, verbose: bool = True):
@@ -249,12 +258,17 @@ def side_features(args, split, verbose: bool = True):
 
 
 def build_datasets(args, split):
-    """(train, val, test) static datasets, held in memory, and the number
-    of side features; in valmode the validation set is also the test set,
-    as in the JAX CLI."""
-    from ..batching import StaticGraphDataset
+    """(train, val, test) datasets and the number of side features: each
+    split static, with its `.npz` cache under
+    data/<name><appendix>/<mode>/<split>, or dynamic by its --dynamic-*
+    flag (--dynamic-dataset sets all three); --reprocess removes the
+    caches first. In valmode the validation set is also the test set, as
+    in the JAX CLI."""
+    from ..batching import DynamicGraphDataset, StaticGraphDataset
     from ..graphs import BipartiteCSR
 
+    if args.dynamic_dataset:
+        args.dynamic_train = args.dynamic_test = args.dynamic_val = True
     u_features, v_features, n_features = side_features(args, split)
     tr_u, tr_v = split.train_u_indices, split.train_v_indices
     va_u, va_v = split.val_u_indices, split.val_v_indices
@@ -267,20 +281,32 @@ def build_datasets(args, split):
         te_u, te_v, te_l = te_u[:nd], te_v[:nd], te_l[:nd]
     print("#train: %d, #val: %d, #test: %d" % (len(tr_u), len(va_u), len(te_u)))
 
+    mode = "testmode" if args.testing else "valmode"
+    data_root = os.path.join("data", f"{args.data_name}{args.data_appendix}", mode)
+    if args.reprocess:
+        for sub in ("train", "val", "test"):
+            shutil.rmtree(os.path.join(data_root, sub), ignore_errors=True)
+
     A = BipartiteCSR(split.adj_train)
     mnph = args.max_nodes_per_hop if args.max_nodes_per_hop > 0 else None
     common = dict(h=args.hop, sample_ratio=args.sample_ratio,
                   max_nodes_per_hop=mnph, u_features=u_features,
                   v_features=v_features, class_values=split.class_values,
                   backend=args.extract_backend)
-    train_graphs = StaticGraphDataset(A, (tr_u, tr_v), tr_l,
-                                      max_num=args.max_train_num, **common)
-    test_graphs = StaticGraphDataset(A, (te_u, te_v), te_l,
-                                     max_num=args.max_test_num, **common)
+
+    def make(dynamic, sub, links, labels, max_num):
+        cls = DynamicGraphDataset if dynamic else StaticGraphDataset
+        return cls(A, links, labels, max_num=max_num,
+                   root=os.path.join(data_root, sub), **common)
+
+    train_graphs = make(args.dynamic_train, "train", (tr_u, tr_v), tr_l,
+                        args.max_train_num)
+    test_graphs = make(args.dynamic_test, "test", (te_u, te_v), te_l,
+                       args.max_test_num)
     val_graphs = None
     if not args.testing:
-        val_graphs = StaticGraphDataset(A, (va_u, va_v), va_l,
-                                        max_num=args.max_val_num, **common)
+        val_graphs = make(args.dynamic_val, "val", (va_u, va_v), va_l,
+                          args.max_val_num)
         test_graphs = val_graphs  # evaluate on val in valmode
     print("Used #train graphs: %d, #test graphs: %d"
           % (len(train_graphs), len(test_graphs)))
@@ -313,10 +339,14 @@ def build_model(args, split, n_features=0):
     return model
 
 
+def dynamic_data(args) -> bool:
+    return args.dynamic_train or args.dynamic_test or args.dynamic_val
+
+
 def check_dense_chunk(args, batch_mode: str) -> None:
-    """The JAX CLI's exits on --dense-chunk, in its order. Its exits on
-    --dense-chunk with --dynamic-* or --n-devices > 1 have no counterpart:
-    unported_flags refuses those flags first."""
+    """The JAX CLI's exits on --dense-chunk, in its order. Its exit on
+    --dense-chunk with --n-devices > 1 has no counterpart: unported_flags
+    refuses that flag first."""
     if not args.dense_chunk:
         return
     if args.dense_chunk < 1:
@@ -326,6 +356,9 @@ def check_dense_chunk(args, batch_mode: str) -> None:
         raise SystemExit("--dense-chunk needs the dense layout "
                          "(conflicts with --batch-mode flat / "
                          "--flat-aggregate)")
+    if dynamic_data(args):
+        raise SystemExit("--dense-chunk needs static (packed) datasets "
+                         "— drop the --dynamic-* flags")
     if args.dense_chunk < args.batch_size and args.batch_size % args.dense_chunk:
         raise SystemExit(f"--dense-chunk ({args.dense_chunk}) must "
                          f"divide --batch-size ({args.batch_size})")
@@ -334,7 +367,9 @@ def check_dense_chunk(args, batch_mode: str) -> None:
 def choose_layouts(args, train_graphs):
     """(batch_mode, flat_aggregate, dense_layout) by the JAX CLI's rules,
     printing its `batch mode: ...` and `dense layout: ... (auto)` lines and
-    exiting as it does on --dense-chunk and --dense-strategy adjacency."""
+    exiting as it does on --dense-chunk, --dense-layout bipartite with
+    dynamic data and --dense-strategy adjacency. Dynamic data gets the
+    unified layout (host-collated slots)."""
     flat_aggregate = "pallas" if args.flat_aggregate == "pallas" else None
     batch_mode = args.batch_mode
     if flat_aggregate is not None:
@@ -351,9 +386,10 @@ def choose_layouts(args, train_graphs):
         print(f"batch mode: {batch_mode} (auto)")
     check_dense_chunk(args, batch_mode)
     adjacency = args.dense_strategy == "adjacency"
+    static_data = not dynamic_data(args)
     dense_layout = args.dense_layout
     if dense_layout == "bipartite":
-        if batch_mode != "dense":
+        if batch_mode != "dense" or not static_data:
             raise SystemExit("--dense-layout bipartite needs the device-resident "
                              "dense path (batch-mode dense + static datasets)")
         if adjacency:
@@ -364,9 +400,9 @@ def choose_layouts(args, train_graphs):
         # bipartite when the median training graph has >= 128 nodes, the
         # JAX CLI's rule (ml_1m with --max-nodes-per-hop 100: bipartite);
         # the adjacency strategy keeps the unified layout
-        nc = train_graphs.node_counts()
-        big = (batch_mode == "dense" and not adjacency and len(nc) > 0
-               and float(np.median(nc)) >= 128)
+        big = (batch_mode == "dense" and not adjacency and static_data
+               and len(train_graphs) > 0
+               and float(np.median(train_graphs.node_counts())) >= 128)
         dense_layout = "bipartite" if big else "unified"
         if batch_mode == "dense":
             print(f"dense layout: {dense_layout} (auto)")
@@ -414,7 +450,7 @@ def main(argv=None):
             superbatch=args.superbatch, batch_mode=batch_mode,
             dense_buckets=args.dense_buckets, flat_aggregate=flat_aggregate,
             dense_chunk=args.dense_chunk, dense_layout=dense_layout,
-            device=device)
+            profile_dir=args.profile_dir or None, device=device)
 
     ckpt_dir = args.transfer if args.transfer else res.path
     eval_kw = dict(batch_mode=batch_mode, flat_aggregate=flat_aggregate,

@@ -7,9 +7,10 @@
 Port of igmc_tpu/cli/predict.py (plus `--device`, default the CUDA card,
 which must be present): loads the dataset's training adjacency with the
 split construction of training (`cli.main.load_split`), builds a
-`serve.Predictor` ensemble from the results directory's `.pth`
-checkpoints (the CLI's ensemble range convention), and scores pairs from
-a CSV/TSV file (or stdin) of `user,item` indices. `--transfer` serves a
+`serve.Predictor` ensemble from the results directory's `.pth` (or the
+JAX package's `.ckpt`) checkpoints (the CLI's ensemble range
+convention), and scores pairs from a CSV/TSV file (or stdin) of
+`user,item` indices. `--transfer` serves a
 model of `--num-relations` relations on another dataset, its adjacency
 bucketed by the same post_rating_map as training's `--transfer`.
 
@@ -32,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--testing", action="store_true", default=False,
                    help="use the testmode adjacency (must match training)")
     p.add_argument("--results-dir", required=True,
-                   help="results dir holding model_checkpoint<E>.pth")
+                   help="results dir holding model_checkpoint<E>.pth (or .ckpt)")
     p.add_argument("--epochs", type=int, required=True,
                    help="final epoch anchoring the ensemble range")
     p.add_argument("--ensemble", action="store_true", default=False,
@@ -60,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ratio", type=float, default=1.0)
     p.add_argument("--data-seed", type=int, default=1234)
     p.add_argument("--reprocess", action="store_true", default=False,
-                   help="reprocess data (there is no cache to reuse here)")
+                   help="rewrite the split pickle instead of reading it")
     p.add_argument("--compilation-cache-dir",
                    default=os.environ.get("IGMC_TPU_COMPILATION_CACHE", ""),
                    help="the JAX package's XLA compilation cache; accepted, "

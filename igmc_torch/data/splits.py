@@ -2,7 +2,7 @@
 
 Port of igmc_tpu/data/splits.py (SplitData, _adjacency_values,
 _carve_and_build, load_official_trainvaltest_split and
-create_trainvaltest_split with the ml_25m time split, without the split
+create_trainvaltest_split with the ml_25m time split and the split
 pickle cache), keeping the conventions RMSE parity depends on:
 
   * `class_values` = sorted unique original ratings; labels index into it.
@@ -21,6 +21,7 @@ MATLAB v7.3, which the JAX package reads through h5py.
 from __future__ import annotations
 
 import os
+import pickle as pkl
 from dataclasses import dataclass
 from typing import Optional
 
@@ -207,6 +208,8 @@ def create_trainvaltest_split(
     dataset: str,
     seed: int = 1234,
     testing: bool = False,
+    datasplit_path: Optional[str] = None,
+    datasplit_from_file: bool = False,
     verbose: bool = True,
     rating_map=None,
     post_rating_map=None,
@@ -214,9 +217,32 @@ def create_trainvaltest_split(
 ) -> SplitData:
     """Random split (ml_1m, ml_10m): the shuffled ratings are cut into
     train, validation (5% of the non-test part) and test (10%); ml_25m's
-    time-ordered ratings are cut 70 / 10 / 20 in order."""
-    (num_users, num_items, u_nodes, v_nodes, ratings,
-     u_features, v_features) = load_data(dataset, seed=seed, verbose=verbose)
+    time-ordered ratings are cut 70 / 10 / 20 in order.
+
+    `datasplit_path` names the split pickle: the raw shuffled load
+    [num_users, num_items, u_nodes, v_nodes, ratings, u_features,
+    v_features] (numpy and scipy objects, so either package reads the
+    other's), read instead of the raw files when it exists and
+    `datasplit_from_file`, else written after loading."""
+    if datasplit_from_file and datasplit_path and os.path.isfile(datasplit_path):
+        print("Reading processed dataset from file...")
+        with open(datasplit_path, "rb") as f:
+            (num_users, num_items, u_nodes, v_nodes, ratings,
+             u_features, v_features) = pkl.load(f)
+        if verbose:
+            print("Number of users = %d" % num_users)
+            print("Number of items = %d" % num_items)
+            print("Number of links = %d" % ratings.shape[0])
+            print("Fraction of positive links = %.4f"
+                  % (float(ratings.shape[0]) / (num_users * num_items),))
+    else:
+        (num_users, num_items, u_nodes, v_nodes, ratings,
+         u_features, v_features) = load_data(dataset, seed=seed, verbose=verbose)
+        if datasplit_path:
+            os.makedirs(os.path.dirname(datasplit_path) or ".", exist_ok=True)
+            with open(datasplit_path, "wb") as f:
+                pkl.dump([num_users, num_items, u_nodes, v_nodes, ratings,
+                          u_features, v_features], f)
 
     if rating_map is not None:
         for i, x in enumerate(ratings):

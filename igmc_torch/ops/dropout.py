@@ -26,9 +26,13 @@ _LOW32 = 0xFFFFFFFF
 def hash_edge_keep(seed: int, key_ids: torch.Tensor, p: float) -> torch.Tensor:
     """Bernoulli(1-p) keep decision per key, as a hash of (seed, key):
     bool tensor of key_ids' shape and device. `seed` is an int in
-    [0, 2**32); key_ids are non-negative integers."""
-    h = (key_ids.long() * 0x9E3779B9) & _LOW32
-    h = (h + (int(seed) & _LOW32)) & _LOW32
+    [0, 2**32); key_ids are non-negative integers. A key of 2**32 or more
+    (a dynamic dataset's host-collated dense edge keys) adds its high word,
+    times an odd constant, to the seed; for other keys that term is 0, and
+    the hash is the JAX package's."""
+    k = key_ids.long()
+    h = ((k & _LOW32) * 0x9E3779B9) & _LOW32
+    h = (h + (int(seed) & _LOW32) + (k >> 32).clamp_min(0) * 0x27D4EB2F) & _LOW32
     h = h ^ (h >> 16)
     h = (h * 0x85EBCA6B) & _LOW32
     h = h ^ (h >> 13)

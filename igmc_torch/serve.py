@@ -10,7 +10,7 @@ with the training side's own machinery, so served scores are what
 `test_once` computes for the same pairs on the dense unified layout:
 `StaticGraphDataset`, `DeviceDataset` + `assemble_dense` over
 `plan_dense_buckets` buckets and `plan_dense_epoch` rows, and
-`load_checkpoint` (reference `.pth` files).
+`load_checkpoint` (reference `.pth` files or the JAX package's `.ckpt`).
 
 IGMC is inductive (no per-user embeddings), so the predictor scores pairs
 whose histories it never saw, cold-start pairs included, and can serve a
@@ -55,8 +55,8 @@ class Predictor:
     cfg : IGMCConfig the checkpoints were trained with; its compute_dtype
         and dense_strategy apply, as in the JAX Predictor (serving runs the
         unified layout, so every strategy can serve).
-    checkpoints : `.pth` paths; several = prediction-averaged ensemble,
-        exactly like `--ensemble`.
+    checkpoints : `.pth` or `.ckpt` paths; several = prediction-averaged
+        ensemble, exactly like `--ensemble`.
     params : alternatively, one in-memory state_dict.
     h / sample_ratio / max_nodes_per_hop / backend : extraction settings
         (must match training for distribution-consistent inputs); backend

@@ -4,9 +4,12 @@ Port of igmc_tpu/train/checkpoints.py (checkpoint_path,
 resolve_checkpoint, save/load). The port writes and reads the PyTorch
 reference's ``model_checkpoint<E>.pth`` state_dicts, and keeps the
 optimizer's state beside them as ``optimizer_checkpoint<E>.pth``
-(torch.optim's state_dict; the JAX package's optax state does not carry
-over). The JAX package's own ``.ckpt`` files are flax msgpack, which this
-package cannot read yet: loading one raises.
+(torch.optim's state_dict). It also reads the JAX package's model
+``.ckpt`` files (flax msgpack, decoded by train/flaxmsgpack.py and mapped
+by params_from_jax), so `--ensemble`, `--transfer`, `--continue-from`'s
+model and serving run from a JAX results directory; a JAX optimizer
+``.ckpt`` is refused, as optax's state does not carry over to
+torch.optim.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import os
 
 import torch
 
-from .interop import load_pth
+from .flaxmsgpack import load_flax_msgpack
+from .interop import load_pth, params_from_jax
 
 
 def checkpoint_path(res_dir: str, kind: str, epoch) -> str:
@@ -24,9 +28,9 @@ def checkpoint_path(res_dir: str, kind: str, epoch) -> str:
 
 def resolve_checkpoint(res_dir: str, kind: str, epoch) -> str:
     """Path of the checkpoint for (kind, epoch): the `.pth` if it exists,
-    else the JAX package's `.ckpt` if that exists (loading it raises a clear
-    error), else the (nonexistent) `.pth` path, so callers' missing-file
-    handling sees the name they would write."""
+    else the JAX package's `.ckpt` if that exists, else the (nonexistent)
+    `.pth` path, so callers' missing-file handling sees the name they would
+    write."""
     pth = checkpoint_path(res_dir, kind, epoch)
     if os.path.exists(pth):
         return pth
@@ -37,13 +41,10 @@ def resolve_checkpoint(res_dir: str, kind: str, epoch) -> str:
 
 
 def load_checkpoint(path: str):
-    """The state_dict stored at `path` (a `.pth`)."""
+    """The model state_dict stored at `path`: a `.pth`, or the JAX
+    package's `.ckpt` of IGMC parameters, mapped to the port's names."""
     if path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: flax msgpack checkpoints of the JAX package cannot be "
-            f"read by igmc_torch yet; export the parameters as a reference "
-            f"'.pth' from the JAX package (train/torch_interop.py "
-            f"save_reference_checkpoint)")
+        return params_from_jax(load_flax_msgpack(path))
     return load_pth(path)
 
 
@@ -58,5 +59,12 @@ def save_optimizer_state(path: str, optimizer: torch.optim.Optimizer) -> None:
 
 def load_optimizer_state(path: str) -> dict:
     """The optimizer state_dict stored at `path`, on the CPU
-    (optimizer.load_state_dict moves it to the parameters' device)."""
+    (optimizer.load_state_dict moves it to the parameters' device). A JAX
+    `.ckpt` raises: optax's Adam state is not torch.optim's."""
+    if path.endswith(".ckpt"):
+        raise ValueError(
+            f"{path}: the JAX package's optimizer checkpoint holds optax "
+            f"state, which does not carry over to torch.optim; resume from a "
+            f"run of igmc_torch, or start a new run from the model "
+            f"checkpoint (--transfer)")
     return torch.load(path, map_location="cpu", weights_only=True)

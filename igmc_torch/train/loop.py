@@ -14,19 +14,26 @@ Port of igmc_tpu/train/loop.py on one device, in two layouts:
     batches) each row's step streams its graphs in N-graph slices,
     accumulating the slices' gradients into one optimizer step, and
     evaluation runs in N-graph rows.
-  * flat (``batch_mode="flat"``): host-collated batches through the fused
-    aggregate kernels, the JAX package's ``flat_aggregate="pallas"``.
+    A dataset without packed arrays (DynamicGraphDataset) runs the dense
+    layout host-collated instead: BatchLoader(batch_mode="dense") extracts
+    and collates unified slot batches on its prefetch threads, one step
+    per batch, as the JAX package's dynamic dense path.
+  * flat (``batch_mode="flat"``): host-collated batches, static or
+    dynamic, through the fused aggregate kernels, the JAX package's
+    ``flat_aggregate="pallas"``; the plans are built on the loader's
+    prefetch threads.
 
 The other flat engines (segment, blocked) and meshes are not ported yet and
 raise. Sums stay on the device across batches and steps, an epoch's graph
-ids and noise masks are uploaded at once, and each epoch's train loss and
-each RMSE cost one host sync.
+ids and noise masks are uploaded at once (device-resident datasets), and
+each epoch's train loss and each RMSE cost one host sync.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
@@ -39,14 +46,14 @@ from ..batching.dense import plan_bipartite_buckets, plan_dense_buckets
 from ..batching.device_data import DeviceDataset, assemble_dense, live_rows
 from ..device import resolve_device
 from ..models.igmc import arr_regularizer, draw_noise, slice_noise
-from .checkpoints import checkpoint_path, load_checkpoint, load_optimizer_state
+from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
 
 
 @dataclass
 class TrainState:
     """The model and optimizer being trained, the last finished epoch, and
-    per-epoch wall seconds with the host's share (flat: collation and
-    planning; dense: the epoch plan)."""
+    per-epoch wall seconds with the host's share (host-collated batches:
+    the time spent waiting for them; device-resident: the epoch plan)."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     epoch: int = 0
@@ -148,8 +155,9 @@ def make_chunked_dense_train_step(model, optimizer, chunk: int,
 
 
 class _Timed:
-    """Iterates `loader`, adding the seconds spent producing its batches
-    (host collation + planning) to `seconds`."""
+    """Iterates `loader`, adding the seconds the consumer waits for its
+    batches (host extraction, collation and planning not hidden behind
+    the steps) to `seconds`."""
 
     def __init__(self, loader):
         self.loader = loader
@@ -174,7 +182,7 @@ def train_epoch(step_fn: Callable, loader, generator: torch.Generator,
     host sync."""
     total = None
     for batch in loader:
-        batch = batch.to(device)
+        batch = batch.to(device, non_blocking=True)
         seed, keep = draw_noise(generator, batch.num_graphs)
         loss, n = step_fn(batch, (seed, keep.to(device)))
         total = loss * n if total is None else total + loss * n
@@ -208,7 +216,7 @@ def eval_rmse(eval_fn: Callable, loader: BatchLoader, device) -> float:
     """RMSE over a loader; device-side accumulation, one host sync."""
     sse = cnt = None
     for batch in loader:
-        s, c, _ = eval_fn(batch.to(device))
+        s, c, _ = eval_fn(batch.to(device, non_blocking=True))
         sse = s if sse is None else sse + s
         cnt = c if cnt is None else cnt + c
     if sse is None:
@@ -221,7 +229,7 @@ def predict_all(eval_fn: Callable, loader: BatchLoader, device):
     numpy arrays (fetched from the device once, at the end)."""
     preds, ys = [], []
     for batch in loader:
-        batch = batch.to(device)
+        batch = batch.to(device, non_blocking=True)
         _, _, p = eval_fn(batch)
         preds.append(p[batch.graph_mask])
         ys.append(batch.y[batch.graph_mask])
@@ -396,6 +404,34 @@ def _check_layout(batch_mode: str, flat_aggregate, what: str):
                                   f"only, not {flat_aggregate!r}")
 
 
+def _check_host_layout(dense_layout: str):
+    if dense_layout != "unified":
+        raise ValueError(f"dense_layout={dense_layout!r} needs static (packed) "
+                         f"datasets; host-collated dense batches are unified")
+
+
+def _start_profile(dev):
+    """A running torch.profiler of CPU and, on a card, CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, dev, profile_dir: str, epoch: int):
+    """Stop `prof` and write its Chrome trace into `profile_dir`."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.trace.json"))
+    print(f"torch.profiler trace of epoch {epoch} written to {profile_dir}")
+
+
 def test_once(
     test_dataset,
     model: torch.nn.Module,
@@ -412,16 +448,18 @@ def test_once(
 ):
     """Evaluate once — `model` (or the state_dict `params` loaded into a
     copy of it), or with `ensemble` the prediction mean of `checkpoints`
-    (`.pth` paths). Prints and returns the RMSE.
+    (`.pth` or the JAX package's `.ckpt` paths). Prints and returns the
+    RMSE.
 
     `batch_mode` 'dense' evaluates on the device-resident dense layout
-    (`dense_layout` 'unified' or 'bipartite', 3 size buckets; rows of
-    `dense_chunk` graphs when that is below batch_size), unless a flat
-    engine is named in `flat_aggregate`, which keeps the flat layout (and
-    says so), as the JAX package does ('segment' and 'auto' name none
-    there). The flat layout runs the fused aggregate. Runs on `device`
-    (default "cuda"; raises without a CUDA device unless device="cpu").
-    The caller's model is not modified."""
+    (`dense_layout` 'unified' or 'bipartite', 3 size buckets), or on
+    host-collated unified batches for a dataset without packed arrays (a
+    DynamicGraphDataset), in rows of `dense_chunk` graphs when that is
+    below batch_size; unless a flat engine is named in `flat_aggregate`,
+    which keeps the flat layout (and says so), as the JAX package does
+    ('segment' and 'auto' name none there). The flat layout runs the fused
+    aggregate. Runs on `device` (default "cuda"; raises without a CUDA
+    device unless device="cpu"). The caller's model is not modified."""
     flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
     if batch_mode == "dense" and flat_aggregate is not None:
         print("test_once: dense eval unavailable — flat_aggregate overrides "
@@ -430,9 +468,10 @@ def test_once(
     _check_layout(batch_mode, flat_aggregate, "evaluation")
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev).eval()
-    if batch_mode == "dense":
-        if dense_chunk and dense_chunk < batch_size:
-            batch_size = dense_chunk
+    if batch_mode == "dense" and dense_chunk and dense_chunk < batch_size:
+        batch_size = dense_chunk
+    device_resident = batch_mode == "dense" and hasattr(test_dataset, "packed")
+    if device_resident:
         dd = DeviceDataset(test_dataset.packed, dev)
         epoch = DensePass.plan(plan_buckets(test_dataset, dense_layout),
                                batch_size, 8, dev)
@@ -440,11 +479,14 @@ def test_once(
         preds_of = lambda m: dense_predict_all(make_eval_step(m), dd, epoch)
         ys = np.asarray(test_dataset.packed.y, np.float32)
     else:
-        loader = BatchLoader(test_dataset, batch_size)
+        if batch_mode == "dense":
+            _check_host_layout(dense_layout)
+        loader = BatchLoader(test_dataset, batch_size, batch_mode=batch_mode,
+                             pin_memory=dev.type == "cuda")
         rmse_of = lambda m: eval_rmse(make_eval_step(m), loader, dev)
     t_start = time.perf_counter()
     if ensemble and checkpoints:
-        if batch_mode == "dense":
+        if device_resident:
             outs = []
             for ckpt in checkpoints:
                 model.load_state_dict(load_checkpoint(ckpt))
@@ -488,6 +530,8 @@ def train_multiple_epochs(
     flat_aggregate: Optional[str] = None,
     dense_chunk: int = 0,
     dense_layout: str = "unified",
+    profile_dir: Optional[str] = None,
+    prefetch: int = 2,
     device="cuda",
 ):
     """Full training run of a copy of `model` (the caller's is not
@@ -498,30 +542,43 @@ def train_multiple_epochs(
     edge and feature dropout noise, the test RMSE every `test_freq` epochs
     (NaN otherwise), the learning rate times `lr_decay_factor` after every
     `lr_decay_step_size`-th epoch, then `logger(info, state)`.
-    `continue_from` E reloads `model_checkpoint{E}.pth` and
-    `optimizer_checkpoint{E}.pth` from `res_dir` and runs epochs E+1 to
-    `epochs`.
+    `continue_from` E reloads the model and optimizer checkpoints of epoch
+    E from `res_dir` (a model `.ckpt` of the JAX package loads; its
+    optimizer `.ckpt` is refused) and runs epochs E+1 to `epochs`.
 
     `batch_mode` 'dense' trains on the device-resident dense layout
     (`dense_layout` 'unified' or 'bipartite', at most `dense_buckets` size
-    buckets, the epoch planned in [superbatch, batch_size] units); 'flat'
-    on host-collated flat batches through the fused aggregate kernels
-    (superbatch does not apply, as in the JAX package). `flat_aggregate`
-    'segment' and 'auto' name no flat engine on the dense layout.
-    `dense_chunk` N (dense only; N >= batch_size means off, else N must
+    buckets, the epoch planned in [superbatch, batch_size] units), or, when
+    a dataset has no packed arrays (DynamicGraphDataset), on host-collated
+    unified batches (one step per batch; no superbatches); 'flat' on
+    host-collated flat batches through the fused aggregate kernels
+    (superbatch does not apply, as in the JAX package). Host-collated
+    batches are extracted, collated and planned `prefetch` batches ahead on
+    the loader's threads (0: on this thread). `flat_aggregate` 'segment'
+    and 'auto' name no flat engine on the dense layout. `dense_chunk` N
+    (dense, static data only; N >= batch_size means off, else N must
     divide batch_size) takes each step over batch_size graphs streamed in
-    N-graph slices and evaluates in N-graph rows. Runs on `device` (default
-    "cuda"; raises without a CUDA device unless device="cpu"). Meshes and
-    the other flat engines raise NotImplementedError."""
+    N-graph slices and evaluates in N-graph rows. `profile_dir` writes a
+    torch.profiler Chrome trace of the training pass of epoch start + 1
+    there (the first epoch after the one that builds and warms up). Runs on
+    `device` (default "cuda"; raises without a CUDA device unless
+    device="cpu"). Meshes and the other flat engines raise
+    NotImplementedError."""
     flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
     _check_layout(batch_mode, flat_aggregate, "training")
     if batch_mode == "dense" and flat_aggregate is not None:
         raise ValueError("flat_aggregate applies to batch_mode='flat'")
     if mesh is not None:
         raise NotImplementedError("igmc_torch training: mesh is not ported")
-    if dense_chunk and batch_mode != "dense":
+    # a dataset without packed arrays to keep on the device (dynamic data)
+    # runs the dense layout host-collated, both sets then
+    host_dense = batch_mode == "dense" and not (hasattr(train_dataset, "packed")
+                                                and hasattr(test_dataset, "packed"))
+    if dense_chunk and (batch_mode != "dense" or host_dense):
         raise ValueError("dense_chunk needs batch_mode='dense' on static "
                          "(packed) datasets")
+    if host_dense:
+        _check_host_layout(dense_layout)
     if dense_chunk >= batch_size:
         dense_chunk = 0  # nothing to stream
     elif dense_chunk and batch_size % dense_chunk:
@@ -531,11 +588,11 @@ def train_multiple_epochs(
     model = copy.deepcopy(model).to(dev)
     optimizer = make_optimizer(model.parameters(), lr, weight_decay)
     state = TrainState(model=model, optimizer=optimizer)
-    dense = batch_mode == "dense"
+    device_resident = batch_mode == "dense" and not host_dense
     step_fn = (make_dense_row_step(model, optimizer, dense_chunk, ARR)
-               if dense else make_train_step(model, optimizer, ARR))
+               if device_resident else make_train_step(model, optimizer, ARR))
     eval_fn = make_eval_step(model)
-    if dense:
+    if device_resident:
         K = max(superbatch, 1)
         dd_train = DeviceDataset(train_dataset.packed, dev)
         dd_test = DeviceDataset(test_dataset.packed, dev)
@@ -544,15 +601,18 @@ def train_multiple_epochs(
             plan_buckets(test_dataset, dense_layout, dense_buckets),
             dense_chunk or batch_size, K, dev)
     else:
-        train_loader = BatchLoader(train_dataset, batch_size, shuffle=True, seed=seed)
-        test_loader = BatchLoader(test_dataset, batch_size)
+        kw = dict(prefetch=prefetch, batch_mode="dense" if host_dense else "flat",
+                  pin_memory=dev.type == "cuda")
+        train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
+                                   seed=seed, **kw)
+        test_loader = BatchLoader(test_dataset, batch_size, **kw)
 
     start_epoch = 1
     if continue_from is not None:
         model.load_state_dict(load_checkpoint(
-            checkpoint_path(res_dir, "model", continue_from)))
+            resolve_checkpoint(res_dir, "model", continue_from)))
         optimizer.load_state_dict(load_optimizer_state(
-            checkpoint_path(res_dir, "optimizer", continue_from)))
+            resolve_checkpoint(res_dir, "optimizer", continue_from)))
         start_epoch = continue_from + 1
         epochs -= continue_from
 
@@ -561,8 +621,10 @@ def train_multiple_epochs(
     for epoch in range(start_epoch, epochs + start_epoch):
         t_epoch = time.perf_counter()
         noise_gen = _noise_generator(seed, epoch)
+        prof = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
+                else None)
         model.train()
-        if dense:
+        if device_resident:
             # the JAX package's epoch rng: the same buckets' permutations
             # and unit order for a given (seed, epoch)
             rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
@@ -577,14 +639,16 @@ def train_multiple_epochs(
             timed_train, timed_test = _Timed(train_loader), _Timed(test_loader)
             train_loss = train_epoch(step_fn, timed_train, noise_gen,
                                      len(train_dataset), dev)
+        if prof is not None:
+            _stop_profile(prof, dev, profile_dir, epoch)
         model.eval()
         if epoch % test_freq != 0:
             rmses.append(float("nan"))
-        elif dense:
+        elif device_resident:
             rmses.append(dense_eval_rmse(eval_fn, dd_test, test_pass))
         else:
             rmses.append(eval_rmse(eval_fn, timed_test, dev))
-        if not dense:
+        if not device_resident:
             host_seconds = timed_train.seconds + timed_test.seconds
         state.epoch = epoch
         state.history.append({
@@ -592,7 +656,10 @@ def train_multiple_epochs(
             "host_seconds": host_seconds})
 
         info = {"epoch": epoch, "train_loss": train_loss, "test_rmse": rmses[-1]}
-        print("Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values()))
+        msg = "Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values())
+        if not device_resident and train_loader.ladder_overflows:
+            msg += f" [ladder overflows: {train_loader.ladder_overflows}]"
+        print(msg)
         # manual step decay, as the PyTorch reference's train_eval.py does
         if epoch % lr_decay_step_size == 0:
             set_learning_rate(optimizer,

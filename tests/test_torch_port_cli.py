@@ -1,9 +1,9 @@
 """igmc_torch's CLI against the JAX package's CLI on a small synthetic
 ML-1M (igmc_tpu.data.synthetic.write_ml1m_format; the port on --device
 cpu): the same `batch mode` and `dense layout` lines under each layout
-rule, a training run with --ensemble writing log.txt in the same format
-with RMSEs in a stated band, the files of a results directory, every
-unported flag refused by name, and ml_100k's official split with side
+rule (dynamic data included), a training run with --ensemble writing
+log.txt in the same format with RMSEs in a stated band, the files of a
+results directory, every unported flag refused by name, and ml_100k's official split with side
 features trained by both CLIs to RMSEs in a stated band. The main path's
 options (--compute-dtype, --dense-chunk, --dense-strategy, --flat-aggregate
 segment) are in test_torch_port_options.py."""
@@ -64,6 +64,8 @@ def run(which, argv, raw, cwd, monkeypatch, capsys):
      ["batch mode: dense (--dense-chunk)", "dense layout: bipartite (auto)"]),
     (["--dense-strategy", "adjacency"],         # auto keeps the unified layout
      ["batch mode: dense (auto)", "dense layout: unified (auto)"]),
+    (["--dynamic-dataset"],                     # dynamic data: unified slots
+     ["batch mode: dense (auto)", "dense layout: unified (auto)"]),
 ])
 def test_layout_lines_match_jax(raw, tmp_path, monkeypatch, capsys, flags, want):
     argv = BASE + ["--no-train", "--max-train-num", "60", "--max-test-num", "20"] + flags
@@ -111,21 +113,21 @@ def test_training_run_matches_jax_cli(raw, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags,named", [
     (["--parallel", "ep"], "--parallel ep"),
     (["--n-devices", "2"], "--n-devices 2"),
-    (["--dynamic-train"], "--dynamic-*"),
-    (["--dynamic-dataset"], "--dynamic-*"),
+    (["--dynamic-train", "--parallel", "ep"], "--parallel ep"),
+    (["--dynamic-dataset", "--visualize"], "--visualize (it draws with matplotlib)"),
     (["--model", "dgcnn"], "--model dgcnn"),
     (["--batch-mode", "flat", "--flat-aggregate", "segment"], "segment engine"),
-    (["--dynamic-test"], "--dynamic-*"),
+    (["--dynamic-test", "--model", "gnn"], "--model gnn"),
     (["--dense-chunk", "10", "--parallel", "ep"], "--parallel ep"),
     (["--visualize"], "--visualize (it draws with matplotlib)"),
-    (["--profile-dir", "p"], "--profile-dir"),
-    (["--dynamic-val"], "--dynamic-*"),
+    (["--profile-dir", "p", "--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
+    (["--dynamic-val", "--n-devices", "4"], "--n-devices 4"),
     (["--model", "gnn"], "--model gnn"),
     (["--model", "dgcnn_rs"], "--model dgcnn_rs"),
     (["--n-devices", "8", "--compute-dtype", "bfloat16"], "--n-devices 8"),
     (["--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
     (["--batch-mode", "flat"], "segment engine"),
-    (["--dense-chunk", "5", "--dynamic-train"], "--dynamic-*"),
+    (["--dense-chunk", "5", "--dynamic-train", "--model", "dgcnn"], "--model dgcnn"),
     (["--dense-chunk", "5", "--n-devices", "2"], "--n-devices 2"),
 ])
 def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch):

@@ -139,7 +139,7 @@ def test_resolve_checkpoint_and_ckpt_refusal(tmp_path):
     ckpt = os.path.join(d, "model_checkpoint5.ckpt")
     open(ckpt, "wb").close()
     assert resolve_checkpoint(d, "model", 5) == ckpt
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match="truncated msgpack"):   # an empty .ckpt
         load_checkpoint(ckpt)
     save_pth(os.path.join(d, "model_checkpoint5.pth"),
              IGMC(port_cfg(), torch.Generator().manual_seed(0)).state_dict())

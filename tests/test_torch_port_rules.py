@@ -1,5 +1,5 @@
 """igmc_torch package rules: nothing of JAX, the JAX package, pandas,
-h5py, matplotlib, flax or tqdm is imported (AST scan, and a real import of
+h5py, matplotlib, flax, tqdm or msgpack is imported (AST scan, and a real import of
 every module with those blocked); entry points default to the CUDA device
 and raise without one; TF32 is off once a device is resolved; kernel and
 extraction-engine sources ship with the package."""
@@ -20,12 +20,13 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "igmc_torch")
 FORBIDDEN = ("jax", "jaxlib", "igmc_tpu", "pandas", "h5py", "matplotlib",
-             "flax", "tqdm")
+             "flax", "tqdm", "msgpack")
 # the modules each slice added, which the scans must reach
 PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
                 "igmc_torch.cli.main", "igmc_torch.graphs.native",
                 "igmc_torch.native.build", "igmc_torch.data.loaders",
-                "igmc_torch.data.splits")
+                "igmc_torch.data.splits", "igmc_torch.data.synthetic",
+                "igmc_torch.train.flaxmsgpack")
 
 
 def _port_sources():
