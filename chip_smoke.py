@@ -130,7 +130,26 @@ non-zero:
      MiB); (f) the CLI with `--dynamic-dataset --profile-dir` on ml_100k for
      2 epochs (the trace is of epoch 2, as in the JAX package): a non-empty
      trace and finite RMSEs. The JAX `.ckpt` loader is host code that the
-     tier-1 tests hold against flax; this machine has no flax to write one.
+     tier-1 tests hold against flax; this machine has no flax to write one;
+ 19. the Monti datasets (tests/torch_fixtures/monti: synthetic flixster,
+     douban and yahoo_music in the published shapes, MATLAB v7.3): each
+     file read through igmc_torch.data.hdf5 (timed) and held against the
+     generator's .npz twin (this machine has no h5py), the split and the
+     C++ extraction timed, the median subgraph node counts; the port CLI
+     in a subprocess with IGMC_RAW_DATA at the fixtures: flixster
+     `--testing --ensemble` 2 epochs on every pair, yahoo_music
+     `--testing` (R = 71) 1 epoch, douban `--testing` cut to MONTI_CUT
+     pairs (depth, not width) 1 epoch; finite RMSEs in log.txt, each
+     epoch's wall time (the CLI's Duration);
+ 20. the GNN, DGCNN and DGCNN_RS families at the CLI's widths on
+     flixster's static dense unified batches: a training step card vs
+     CPU (loss rtol 1e-5, gradients 1e-4 of the largest entry; for DGCNN
+     on the first batch whose SortPool row order is the same on both,
+     the keys held to KEY_ATOL on every batch looked at), one epoch of
+     training and evaluation (K1/K2 0 launches), the forward's time per
+     batch (CUDA events) and its kernels (profiler), the step's time, its
+     kernels and the busy share; then the CLI with `--model dgcnn_rs
+     --testing --epochs 1`.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -183,6 +202,19 @@ DYN_FLAT_RTOL = 1e-3
 # (synthesize_ratings draws each user's items over all movies' weights)
 ML25M_CUT = dict(n_users=20_000, n_movies=8_000, n_ratings=1_000_000, seed=0)
 CACHE_PAIRS = 20_000             # ML-1M training pairs through the .npz cache
+# the Monti fixtures (tests/torch_make_monti_fixtures.py) and each CLI run:
+# flags past --data-name NAME --testing, and the epochs they train
+MONTI_ROOT = os.path.join(REPO, "tests", "torch_fixtures", "monti")
+MONTI_CLI = {
+    "flixster": (["--ensemble", "--epochs", "2", "--save-interval", "1"], 2),
+    "yahoo_music": (["--epochs", "1"], 1),
+    "douban": (["--max-train-num", "10000", "--max-test-num", "2000",
+                "--epochs", "1"], 1),
+}
+MONTI_CUT = {"douban": (10_000, 2_000)}   # depth cut: training, test pairs
+FAMILY_STEPS = 40                # training batches timed per family
+# SortPool keys (the DGCNN trunk's last channel, tanh) card vs CPU
+KEY_ATOL = 1e-5
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
 BATCH_SIZE = 50                  # the CLI's default batch
 CPU_BATCHES = 5                  # batches held against the CPU plain path
@@ -808,6 +840,19 @@ def _subprocess(cmd, raw_data, cwd, what, timeout=600):
     return out.stdout.splitlines(), out.stderr, wall
 
 
+def _check_log(cwd, name, heads, what):
+    """The CLI's log.txt under `cwd`: one line per head, finite RMSEs."""
+    log_path = os.path.join(cwd, "results", f"{name}_testmode", "log.txt")
+    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
+    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
+        fail(f"{what}: log.txt reads {log}")
+    for line in log:
+        if not math.isfinite(float(line.split()[-1])):
+            fail(f"{what}: log.txt has a RMSE that is not finite: {line}")
+        print(f"[{what}] log.txt: {line}")
+    return [float(l.split()[-1]) for l in log]
+
+
 def run_cli(raw_data: str) -> None:
     """Phase 12: `python -m igmc_torch.cli.main` on ML-1M in a subprocess
     and a temporary working directory; it must pick the dense bipartite
@@ -824,30 +869,32 @@ def run_cli(raw_data: str) -> None:
         for line in lines:
             if line.startswith(("batch mode", "dense layout", "Epoch", "Ensemble")):
                 print(f"[cli]   {line}")
-        log_path = os.path.join(cwd, "results", "ml_1m_testmode", "log.txt")
-        log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
-    heads = ["Epoch 1,", "Epoch 2,", "Epoch ensemble of range(-13, 2, 5),"]
-    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
-        fail(f"the CLI's log.txt reads {log}")
-    for line in log:
-        if not math.isfinite(float(line.split()[-1])):
-            fail(f"the CLI's log.txt has a RMSE that is not finite: {line}")
-        print(f"[cli] log.txt: {line}")
+        _check_log(cwd, "ml_1m", ["Epoch 1,", "Epoch 2,",
+                                  "Epoch ensemble of range(-13, 2, 5),"], "cli")
+
+
+def family_model(cfg, generator):
+    """The model of `cfg`'s family: IGMC, GNN or DGCNN (DGCNN_RS)."""
+    from igmc_torch.models import DGCNN, GNN, IGMC, DGCNNConfig, GNNConfig
+
+    return {GNNConfig: GNN, DGCNNConfig: DGCNN}.get(type(cfg), IGMC)(cfg, generator)
 
 
 def card_vs_cpu_step(cfg, batch, label, loss_rtol=1e-5, grad_tol=GRAD_TOL):
     """One training step's loss and gradients from the same weights (seed
-    5), `batch` and noise on the card and on the CPU: loss to `loss_rtol`,
-    every gradient to rtol / atol `grad_tol` of its largest entry (with
-    side features, lin1's feature columns are reported apart)."""
+    5), `batch` and noise on the card and on the CPU, for the model family
+    of `cfg`: loss to `loss_rtol`, every gradient to rtol / atol `grad_tol`
+    of its largest entry (with side features, lin1's feature columns are
+    reported apart). Returns (the loss's relative difference, the worst
+    gradient difference over its parameter's largest entry)."""
     import torch
-    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.models import draw_noise
     from igmc_torch.train import loss_fn
 
     grads, loss_vals = {}, {}
     noise = draw_noise(torch.Generator().manual_seed(9), batch.num_graphs)
     for where in ("cpu", "cuda"):
-        mm = IGMC(cfg, torch.Generator().manual_seed(5)).to(where).train()
+        mm = family_model(cfg, torch.Generator().manual_seed(5)).to(where).train()
         loss, _ = loss_fn(mm, batch.to(where), (noise[0], noise[1].to(where)), 0.001)
         loss.backward()
         loss_vals[where] = loss.item()
@@ -865,7 +912,7 @@ def card_vs_cpu_step(cfg, batch, label, loss_rtol=1e-5, grad_tol=GRAD_TOL):
         except AssertionError as e:
             fail(f"{label}: gradient of {k} on the card disagrees with the CPU: {e}")
     extra = ""
-    if cfg.side_features:
+    if getattr(cfg, "side_features", False):
         cols = 2 * sum(cfg.latent_dim)
         gc, gg = grads["cpu"]["lin1.weight"][:, cols:], grads["cuda"]["lin1.weight"][:, cols:]
         if not float(gc.abs().max()) > 0:
@@ -878,6 +925,7 @@ def card_vs_cpu_step(cfg, batch, label, loss_rtol=1e-5, grad_tol=GRAD_TOL):
           f"difference {worst:.3e} of its parameter's largest entry "
           f"(loss rtol {loss_rtol}; rtol {grad_tol}, atol {grad_tol} of the largest "
           f"entry){extra}")
+    return abs(loss_vals["cuda"] - loss_vals["cpu"]) / abs(loss_vals["cpu"]), worst
 
 
 def features_phase(split, cfg, dev, reset_counts, read_counts, expect):
@@ -936,15 +984,8 @@ def run_cli_100k(raw_data, cwd):
         if line.startswith(("Using official", "Number of", "batch mode",
                             "dense layout", "Epoch", "Ensemble")):
             print(f"[cli ml_100k]   {line}")
-    log_path = os.path.join(cwd, "results", "ml_100k_testmode", "log.txt")
-    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
-    heads = ["Epoch 1,", "Epoch 2,", "Epoch ensemble of range(-28, 2, 10),"]
-    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
-        fail(f"the ml_100k CLI's log.txt reads {log}")
-    for line in log:
-        if not math.isfinite(float(line.split()[-1])):
-            fail(f"the ml_100k CLI's log.txt has a RMSE that is not finite: {line}")
-        print(f"[cli ml_100k] log.txt: {line}")
+    _check_log(cwd, "ml_100k", ["Epoch 1,", "Epoch 2,",
+                                "Epoch ensemble of range(-28, 2, 10),"], "cli ml_100k")
     return os.path.join(cwd, "results", "ml_100k_testmode")
 
 
@@ -1377,15 +1418,8 @@ def options_phase(split, cfg, ckpts, train_ds, test_ds, dtrain, dev, raw_data,
     for want in ("batch mode: dense (--dense-chunk)", "dense layout: unified (auto)"):
         if want not in lines:
             fail(f"the options CLI did not print {want!r}")
-    log_path = os.path.join(cwd, "results", "ml_100k_testmode", "log.txt")
-    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
-    heads = ["Epoch 1,", "Epoch ensemble of range(-29, 1, 10),"]
-    if len(log) != len(heads) or not all(l.startswith(h) for l, h in zip(log, heads)):
-        fail(f"the options CLI's log.txt reads {log}")
-    for line in log:
-        if not math.isfinite(float(line.split()[-1])):
-            fail(f"the options CLI's log.txt has a RMSE that is not finite: {line}")
-        print(f"[cli options] log.txt: {line}")
+    _check_log(cwd, "ml_100k", ["Epoch 1,", "Epoch ensemble of range(-29, 1, 10),"],
+               "cli options")
     return out
 
 
@@ -1639,15 +1673,271 @@ def dynamic_phase(split, cfg, test_ds, dense_ckpts, dev, raw_data, work,
     size = os.path.getsize(trace) if os.path.isfile(trace) else 0
     if not size or f"torch.profiler trace of epoch 2 written to {prof_dir}" not in lines:
         fail(f"the dynamic CLI wrote no trace ({trace}: {size} bytes)")
-    log_path = os.path.join(cwd, "results", "ml_100k_testmode", "log.txt")
-    log = open(log_path).read().splitlines() if os.path.isfile(log_path) else []
-    if len(log) != 2 or not all(math.isfinite(float(l.split()[-1])) for l in log):
-        fail(f"the dynamic CLI's log.txt reads {log}")
-    for line in log:
-        print(f"[cli dynamic] log.txt: {line}")
+    _check_log(cwd, "ml_100k", ["Epoch 1,", "Epoch 2,"], "cli dynamic")
     print(f"[cli dynamic] trace {os.path.basename(trace)}: {size / 2**20:.1f} MiB")
     out["cli_trace_mib"] = size / 2**20
     return out
+
+
+def _cli_duration(lines, what):
+    """(final RMSE, training seconds) from the CLI's "Final Test RMSE: x,
+    Duration: y" line."""
+    for line in lines:
+        m = re.match(r"Final Test RMSE: (\S+), Duration: (\S+)", line)
+        if m:
+            return float(m.group(1)), float(m.group(2))
+    fail(f"{what} printed no 'Final Test RMSE' line")
+
+
+def monti_phase(dev, work, reset_counts, read_counts, expect):
+    """Phase 19: the Monti fixtures. Each file read through
+    igmc_torch.data.hdf5 (timed) and held against its .npz twin; the split
+    (load_data_monti, timed), the C++ extraction of the pairs the CLI
+    uses (timed) and their median node count; then the port CLI on the
+    card in a subprocess (flixster --ensemble 2 epochs, yahoo_music R = 71
+    1 epoch, douban cut to MONTI_CUT pairs 1 epoch), finite RMSEs in
+    log.txt. Returns (numbers, flixster's (split, train, test) datasets)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_make_monti_fixtures import FILE, from_twin
+
+    import scipy.sparse as sp
+    from igmc_torch.batching import StaticGraphDataset
+    from igmc_torch.data import load_data_monti, load_matlab_file
+
+    numbers, flixster = {}, None
+    raw_before = os.environ.get("IGMC_RAW_DATA", "")
+    for name, (flags, epochs) in MONTI_CLI.items():
+        path = os.path.join(MONTI_ROOT, name, FILE + ".mat")
+        with np.load(os.path.join(MONTI_ROOT, name, FILE + ".npz")) as npz:
+            twin = from_twin(npz)
+        t0 = time.perf_counter()
+        fields = {f: load_matlab_file(path, f) for f in twin}
+        read_s = time.perf_counter() - t0
+        for f, want in twin.items():
+            got, want = fields[f], want.astype(np.float32)
+            same = (got.shape == want.shape and got.dtype == np.float32
+                    and (((got != want).nnz == 0) if sp.issparse(want)
+                         else np.array_equal(got, want)))
+            if not same or sp.issparse(got) != sp.issparse(want):
+                fail(f"monti {name}: field {f} read through igmc_torch.data.hdf5 "
+                     f"differs from the generator's .npz twin")
+        os.environ["IGMC_RAW_DATA"] = MONTI_ROOT
+        t0 = time.perf_counter()
+        split = load_data_monti(name, testing=True)
+        split_s = time.perf_counter() - t0
+        max_train, max_test = MONTI_CUT.get(name, (None, None))
+        kw = dict(h=1, class_values=split.class_values, backend="native")
+        t0 = time.perf_counter()
+        train_ds = StaticGraphDataset(split.adj_train, (split.train_u_indices,
+                                                        split.train_v_indices),
+                                      split.train_labels, max_num=max_train, **kw)
+        test_ds = StaticGraphDataset(split.adj_train, (split.test_u_indices,
+                                                       split.test_v_indices),
+                                     split.test_labels, max_num=max_test, **kw)
+        extract_s = time.perf_counter() - t0
+        med = float(np.median(train_ds.node_counts()))
+        med_test = float(np.median(test_ds.node_counts()))
+        R = len(split.class_values)
+        print(f"[monti] {name}: {len(twin)} fields read in {read_s:.3f} s, equal to "
+              f"the .npz twin; split in {split_s:.3f} s ({len(split.train_labels)} "
+              f"training + {len(split.test_labels)} test links, R = {R}); "
+              f"{len(train_ds)} + {len(test_ds)} subgraphs extracted in "
+              f"{extract_s:.3f} s (C++ engine); median nodes {med:.1f} (training), "
+              f"{med_test:.1f} (test)", flush=True)
+        cwd = os.path.join(work, f"monti_{name}")
+        os.makedirs(cwd)
+        cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", name,
+               "--testing"] + flags
+        reset_counts()
+        lines, _, cli_s = _subprocess(cmd, MONTI_ROOT, cwd, f"monti cli {name}")
+        read_counts(f"monti_{name}")
+        for want in ("batch mode: dense (auto)", "dense layout: unified (auto)"):
+            if want not in lines:
+                fail(f"the {name} CLI did not print {want!r}")
+        rmse, train_s = _cli_duration(lines, f"the {name} CLI")
+        heads = [f"Epoch {e}," for e in range(1, epochs + 1)]
+        if "--ensemble" in flags:
+            heads.append(f"Epoch ensemble of range({epochs - 30}, {epochs}, 10),")
+        rmses = _check_log(cwd, name, heads, f"monti cli {name}")
+        print(f"[monti] {name}: CLI {cli_s:.2f} s wall; {epochs} epoch(s) of training "
+              f"and evaluation {train_s:.3f} s ({train_s / epochs:.3f} s per epoch, "
+              f"the CLI's Duration); RMSEs {rmses}", flush=True)
+        numbers[name] = {"read_s": read_s, "split_s": split_s, "extract_s": extract_s,
+                         "train_graphs": len(train_ds), "test_graphs": len(test_ds),
+                         "median_nodes": med, "median_nodes_test": med_test,
+                         "relations": R, "cli_s": cli_s, "epoch_s": train_s / epochs,
+                         "rmses": rmses}
+        if name == "flixster":
+            flixster = (split, train_ds, test_ds)
+    os.environ["IGMC_RAW_DATA"] = raw_before
+    return numbers, flixster
+
+
+def _sort_order(model, batch, noise):
+    """(SortPool's row order [B, k], the keys [B, n] with padding at -inf)
+    of a DGCNN model on `batch` in training mode under `noise`."""
+    import torch
+
+    with torch.no_grad():
+        keys = model.trunk(batch, noise[0])[..., -1]
+    keys = torch.where(batch.node_mask, keys, torch.full_like(keys, -math.inf))
+    order = torch.argsort(-keys, dim=1, stable=True)[:, :model.cfg.k]
+    return order, keys
+
+
+def _min_gap(keys) -> float:
+    """The smallest nonzero gap between two finite keys of one graph."""
+    k = keys.cpu().numpy()
+    smallest = math.inf
+    for row in k:
+        gaps = np.diff(np.sort(row[np.isfinite(row)]))
+        gaps = gaps[gaps > 0]
+        if gaps.size:
+            smallest = min(smallest, float(gaps.min()))
+    return smallest
+
+
+def families_phase(flixster, dev, work, reset_counts, read_counts, expect):
+    """Phase 20: GNN, DGCNN and DGCNN_RS at the CLI's widths on the
+    flixster fixture's static dense unified batches: a training step card
+    vs CPU, one epoch of training and evaluation, the forward's kernel
+    time, the step time and the busy share; then the CLI with --model
+    dgcnn_rs. Returns the numbers it measured."""
+    import torch
+    from igmc_torch.batching import DeviceDataset
+    from igmc_torch.models import (DGCNNConfig, GNNConfig, draw_noise,
+                                   sortpool_k_from_dataset)
+    from igmc_torch.train import (DensePass, make_optimizer, make_train_step,
+                                  plan_buckets, train_multiple_epochs)
+
+    split, train_ds, test_ds = flixster
+    R = len(split.class_values)
+    k = sortpool_k_from_dataset(train_ds.node_counts(), 0.6)
+    configs = {
+        "gnn": GNNConfig(num_features=4),
+        "dgcnn": DGCNNConfig(num_features=4, latent_dim=(32, 32, 32, 1), k=k,
+                             num_relations=R, num_bases=4),
+        "dgcnn_rs": DGCNNConfig(num_features=4, latent_dim=(32, 32, 32, 1), k=k,
+                                relational=True, num_relations=R, num_bases=4),
+    }
+    dd_train = DeviceDataset(train_ds.packed, dev)
+    dd_test = DeviceDataset(test_ds.packed, dev)
+    tr_pass = DensePass.plan(plan_buckets(train_ds, "unified"), BATCH_SIZE, 8, dev,
+                             np.random.default_rng(1))
+    te_pass = DensePass.plan(plan_buckets(test_ds, "unified"), BATCH_SIZE, 8, dev)
+    train_batches = [b for _, b in zip(range(FAMILY_STEPS), tr_pass.batches(dd_train))]
+    test_batches = list(te_pass.batches(dd_test))
+    print(f"[families] flixster: {len(train_ds)} training + {len(test_ds)} test "
+          f"graphs, unified slots {[(b.node_slot, b.edge_slot) for b in tr_pass.buckets]}, "
+          f"SortPool k {k} (60th percentile of the training graphs' node counts)")
+    numbers = {"k": k}
+    for name, cfg in configs.items():
+        out = numbers[name] = {}
+        # card vs CPU. DGCNN's SortPool ranks rows by keys the card and the
+        # CPU agree on only to ~1e-7, so two rows closer than that may swap
+        # and change the loss by far more: the keys are held to KEY_ATOL on
+        # every batch scanned, and the step on the first batch whose pooled
+        # row order is the same on both
+        noise = draw_noise(torch.Generator().manual_seed(9), BATCH_SIZE)
+        pick, gap, key_diff, swapped = 0, math.inf, 0.0, []
+        if name != "gnn":
+            cpu_model = family_model(cfg, torch.Generator().manual_seed(5)).train()
+            card_model = family_model(cfg, torch.Generator().manual_seed(5)).to(dev)
+            card_model.train()
+            card_noise = (noise[0], noise[1].to(dev))
+            for pick, b in enumerate(train_batches):
+                o_card, k_card = _sort_order(card_model, b, card_noise)
+                o_cpu, k_cpu = _sort_order(cpu_model, b.to("cpu"), noise)
+                live = torch.isfinite(k_cpu)
+                key_diff = max(key_diff, float((k_card.cpu() - k_cpu)[live].abs().max()))
+                if key_diff > KEY_ATOL:
+                    fail(f"families {name}: SortPool keys on the card differ from the "
+                         f"CPU's by {key_diff:.3e} on batch {pick}")
+                if torch.equal(o_card.cpu(), o_cpu):
+                    gap = _min_gap(k_cpu)
+                    break
+                swapped.append(_min_gap(k_cpu))
+            else:
+                fail(f"families {name}: the pooled row order differs between the card "
+                     f"and the CPU on all {len(train_batches)} batches")
+        print(f"[families] {name}: card vs CPU on training batch {pick}"
+              + (f" ({len(swapped)} earlier batches pooled rows in another order, "
+                 f"smallest key gaps {['%.1e' % g for g in swapped]}; keys within "
+                 f"{key_diff:.3e}; this batch's smallest gap {gap:.3e})"
+                 if name != "gnn" else ""))
+        loss_rel, worst = card_vs_cpu_step(cfg, train_batches[pick].to("cpu"),
+                                           f"families {name}, card vs CPU")
+        # one epoch of training and evaluation through the loop
+        reset_counts()
+        t0 = time.perf_counter()
+        rmse, state = train_multiple_epochs(
+            train_ds, test_ds, family_model(cfg, torch.Generator().manual_seed(3)),
+            epochs=1, batch_size=BATCH_SIZE, lr=1e-3, lr_decay_factor=0.1,
+            lr_decay_step_size=50, ARR=0.001, batch_mode="dense",
+            dense_layout="unified", seed=1, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_counts(f"family_{name}")
+        expect(f"family_{name}", "rgcn_aggregate_fwd", 0)
+        expect(f"family_{name}", "rgcn_aggregate_bwd", 0)
+        if not math.isfinite(rmse):
+            fail(f"families {name}: the epoch's test RMSE is {rmse}")
+        h = state.history[0]
+        # the forward: CUDA events and kernels per test batch
+        model = state.model.eval()
+
+        def forward_all():
+            with torch.no_grad():
+                for b in test_batches:
+                    model(b)
+
+        fwd_ms = cuda_ms(forward_all, 2, warmup=1) / len(test_batches)
+        _, busy_fwd, _ = profile(forward_all, f"{name} forward",
+                                 f"{len(test_batches)} batches")
+        # the step: CUDA events, then the profiler's busy share
+        gen = torch.Generator().manual_seed(4)
+        noises = [(s_, kp.to(dev)) for s_, kp in
+                  (draw_noise(gen, BATCH_SIZE) for _ in train_batches)]
+        m = family_model(cfg, torch.Generator().manual_seed(3)).to(dev).train()
+        step = make_train_step(m, make_optimizer(m.parameters(), 1e-3), 0.001)
+
+        def steps_all():
+            for b, nz in zip(train_batches, noises):
+                step(b, nz)
+
+        step_ms = cuda_ms(steps_all, 1, warmup=1) / len(train_batches)
+        _, busy_step, window = profile(steps_all, f"{name} training steps",
+                                       f"{len(train_batches)} steps")
+        out.update({"card_vs_cpu_batch": pick, "sortpool_gap": gap,
+                    "key_diff": key_diff, "order_swaps": len(swapped),
+                    "loss_rel_diff": loss_rel, "grad_worst": worst,
+                    "epoch_s": h["seconds"], "host_s": h["host_seconds"],
+                    "train_wall_s": wall, "rmse": rmse,
+                    "forward_ms": fwd_ms,
+                    "forward_kernel_ms": busy_fwd / len(test_batches),
+                    "step_ms": step_ms,
+                    "step_kernel_ms": busy_step / len(train_batches),
+                    "step_busy_share": busy_step / window})
+        print(f"[families] {name}: 1 epoch ({len(train_ds)} graphs) {h['seconds']:.3f} s "
+              f"wall (epoch plan {h['host_seconds']:.3f} s), test RMSE {rmse:.6f}; "
+              f"forward {fwd_ms:.4f} ms per batch (CUDA events), "
+              f"{busy_fwd / len(test_batches):.4f} ms of kernels (profiler); step "
+              f"{step_ms:.4f} ms (CUDA events), {busy_step / len(train_batches):.4f} "
+              f"ms of kernels, busy share {busy_step / window:.3f}", flush=True)
+    cwd = os.path.join(work, "families_cli")
+    os.makedirs(cwd)
+    cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "flixster",
+           "--testing", "--model", "dgcnn_rs", "--epochs", "1"]
+    reset_counts()
+    lines, _, cli_s = _subprocess(cmd, MONTI_ROOT, cwd, "families cli")
+    read_counts("families_cli")
+    params = [l for l in lines if l.startswith("Total number of parameters is ")]
+    if not params or "dense layout: unified (auto)" not in lines:
+        fail(f"the dgcnn_rs CLI printed {lines[-12:]}")
+    rmses = _check_log(cwd, "flixster", ["Epoch 1,"], "families cli")
+    numbers["cli"] = {"wall_s": cli_s, "rmse": rmses[0], "params": params[0]}
+    print(f"[families] CLI --model dgcnn_rs: {params[0]}; {cli_s:.2f} s wall")
+    return numbers
 
 
 def main() -> None:
@@ -1964,6 +2254,15 @@ def main() -> None:
                                     args.raw_data, work, reset_counts, read_counts,
                                     expect)
 
+        # ---- 19. the Monti datasets -------------------------------------------
+        with phase("monti"):
+            monti, flixster = monti_phase(dev, work, reset_counts, read_counts, expect)
+
+        # ---- 20. the GNN, DGCNN and DGCNN_RS families ----------------------------
+        with phase("families"):
+            families = families_phase(flixster, dev, work, reset_counts, read_counts,
+                                      expect)
+
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
@@ -1995,6 +2294,8 @@ def main() -> None:
     print(f"[serve] timings: {json.dumps(serve_times)}")
     print(f"[options] numbers: {json.dumps(options)}")
     print(f"[dynamic] numbers: {json.dumps(dynamic)}")
+    print(f"[monti] numbers: {json.dumps(monti)}")
+    print(f"[families] numbers: {json.dumps(families)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,20 +5,23 @@
 
 Port of igmc_tpu/cli/main.py: the same argparse surface and defaults
 (plus `--device`, the counterpart of JAX's platform selection; default the
-CUDA card, which must be present), rating_maps, the MovieLens splits
-(ml_100k's official u1.base / u1.test split, the random split of ml_1m and
-ml_10m and ml_25m's time split, with the split pickle
-`raw_data/<name>/[withfeatures_]split_seed<S>.pickle`), side features
-(`--use-features`), the extraction engines (`--extract-backend
+CUDA card, which must be present), rating_maps, the Monti datasets'
+split (flixster, douban, yahoo_music: MATLAB v7.3 files read without
+h5py), the MovieLens splits (ml_100k's official u1.base / u1.test split,
+the random split of ml_1m and ml_10m and ml_25m's time split, with the
+split pickle `raw_data/<name>/[withfeatures_]split_seed<S>.pickle`), side
+features (`--use-features`), the extraction engines (`--extract-backend
 auto|numpy|native`), the datasets under
 `data/<name><--data-appendix>/<testmode|valmode>/<train|val|test>`:
 static ones with the JAX package's `.npz` subgraph cache, or extracted on
 the fly per split (`--dynamic-train/-val/-test`, `--dynamic-dataset` for
 all three; `--reprocess` removes the caches and rewrites the split
-pickle), the IGMC model, and main's batch-mode and dense-layout rules,
-training, `--ensemble` and `--transfer` (from `.pth` or the JAX
-package's `.ckpt` checkpoints), `--profile-dir` (a torch.profiler trace
-of the second epoch), with the same printed lines and `log.txt` lines,
+pickle), the model families (`--model igmc|gnn|dgcnn|dgcnn_rs`; the
+three baselines on the dense layout), and main's batch-mode and
+dense-layout rules, training, `--ensemble` and `--transfer` (from `.pth`
+or the JAX package's `.ckpt` checkpoints), `--profile-dir` (a
+torch.profiler trace of the second epoch), with the same printed lines
+and `log.txt` lines,
 and the main path's options: `--compute-dtype bfloat16`, `--dense-chunk N`
 (giant batches, static data), `--dense-strategy adjacency` (unified
 layout only). Dynamic data runs the dense layout host-collated (unified
@@ -28,9 +31,8 @@ engine, so the dense layout runs, as in the JAX CLI.
 
 Flags whose code is not ported yet exit with a message naming the flag:
 `--parallel ep`, `--n-devices` > 1, `--visualize` (it draws with
-matplotlib), models other than igmc, the blocked flat engine, and the
-flat layout without `--flat-aggregate pallas` (the segment engine); the
-Monti datasets (flixster, douban, yahoo_music) exit naming why.
+matplotlib), the blocked flat engine, and the flat layout without
+`--flat-aggregate pallas` (the segment engine).
 `--compilation-cache-dir`, `--conv-strategy` and `--ep-local-aggregate`
 are accepted and change nothing here (the port compiles no XLA programs,
 and the other two select engines of paths not ported).
@@ -107,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     # the JAX package's extensions
     p.add_argument("--model", default="igmc",
                    choices=["igmc", "gnn", "dgcnn", "dgcnn_rs"],
-                   help="model family (igmc only so far)")
+                   help="model family: IGMC, or the GNN, DGCNN and DGCNN_RS "
+                        "baselines (dense layout)")
     p.add_argument("--num-bases", type=int, default=4, help="R-GCN basis count")
     p.add_argument("--aggr", default="mean", choices=["mean", "sum", "relmean"],
                    help="R-GCN aggregation (relmean: dense layout only)")
@@ -184,7 +187,6 @@ def unported_flags(args) -> list:
         (args.parallel == "ep", "--parallel ep"),
         (args.n_devices > 1, f"--n-devices {args.n_devices}"),
         (args.visualize, "--visualize (it draws with matplotlib)"),
-        (args.model != "igmc", f"--model {args.model}"),
         (args.flat_aggregate == "blocked", "--flat-aggregate blocked"),
         (args.batch_mode == "flat" and args.flat_aggregate in ("auto", "segment"),
          "--batch-mode flat without --flat-aggregate pallas (the segment engine)"),
@@ -219,17 +221,14 @@ def rating_maps(args):
 
 
 def load_split(args, rating_map, post_rating_map):
-    """ml_100k's official split, or the random (ml_1m, ml_10m) or time
-    (ml_25m) split; the Monti datasets exit naming why."""
-    from ..data import (create_trainvaltest_split,
-                        load_official_trainvaltest_split)
+    """The Monti datasets' split (flixster, douban, yahoo_music), ml_100k's
+    official split, or the random (ml_1m, ml_10m) or time (ml_25m) split."""
+    from ..data import (MONTI_DATASETS, create_trainvaltest_split,
+                        load_data_monti, load_official_trainvaltest_split)
 
-    if args.data_name in ("flixster", "douban", "yahoo_music"):
-        raise SystemExit(
-            f"--data-name {args.data_name}: the Monti loaders (flixster, "
-            f"douban, yahoo_music) are not ported to igmc_torch yet: their "
-            f"MATLAB v7.3 .mat files are not in the repository and the port "
-            f"has no reader for them without h5py")
+    if args.data_name in MONTI_DATASETS:
+        return load_data_monti(args.data_name, args.testing, rating_map,
+                               post_rating_map)
     if args.data_name == "ml_100k":
         print("Using official MovieLens split u1.base/u1.test with 20% validation...")
         return load_official_trainvaltest_split(
@@ -313,27 +312,51 @@ def build_datasets(args, split):
     return train_graphs, val_graphs, test_graphs, n_features
 
 
-def build_model(args, split, n_features=0):
-    """Full-width IGMC, initialised from a generator seeded with --seed."""
+def build_model(args, split, n_features=0, train_graphs=None):
+    """The --model family at the CLI's full width, initialised from a
+    generator seeded with --seed: IGMC (4 R-GCN layers of 32), GNN (GCN
+    layers 32, 32, 32, 1), DGCNN or DGCNN_RS (the same widths, GCN or
+    R-GCN with 4 bases; SortPool k the 60th-percentile node count of the
+    training graphs, or 30 for a dataset without node counts)."""
     import torch
 
-    from ..models import IGMC, IGMCConfig
+    from ..models import (DGCNN, GNN, IGMC, DGCNNConfig, GNNConfig, IGMCConfig,
+                          sortpool_k_from_dataset)
 
+    num_features = 2 * args.hop + 2
     if args.transfer:
         num_relations, multiply_by = args.num_relations, args.multiply_by
     else:
         num_relations, multiply_by = len(split.class_values), 1.0
-    cfg = IGMCConfig(num_features=2 * args.hop + 2, latent_dim=(32, 32, 32, 32),
-                     num_relations=num_relations, num_bases=args.num_bases,
-                     adj_dropout=args.adj_dropout,
-                     force_undirected=args.force_undirected,
-                     side_features=args.use_features,
-                     n_side_features=n_features,
-                     multiply_by=multiply_by, aggr=args.aggr,
-                     dense_strategy=args.dense_strategy,
-                     compute_dtype=(None if args.compute_dtype == "float32"
-                                    else args.compute_dtype))
-    model = IGMC(cfg, torch.Generator().manual_seed(args.seed))
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "igmc":
+        cfg = IGMCConfig(num_features=num_features, latent_dim=(32, 32, 32, 32),
+                         num_relations=num_relations, num_bases=args.num_bases,
+                         adj_dropout=args.adj_dropout,
+                         force_undirected=args.force_undirected,
+                         side_features=args.use_features,
+                         n_side_features=n_features,
+                         multiply_by=multiply_by, aggr=args.aggr,
+                         dense_strategy=args.dense_strategy,
+                         compute_dtype=(None if args.compute_dtype == "float32"
+                                        else args.compute_dtype))
+        model = IGMC(cfg, gen)
+    elif args.model == "gnn":
+        model = GNN(GNNConfig(num_features=num_features,
+                              adj_dropout=args.adj_dropout,
+                              force_undirected=args.force_undirected), gen)
+    else:  # dgcnn / dgcnn_rs
+        k = 30
+        if train_graphs is not None and hasattr(train_graphs, "node_counts"):
+            nc = train_graphs.node_counts()
+            if len(nc):
+                k = sortpool_k_from_dataset(nc, 0.6)
+        model = DGCNN(DGCNNConfig(num_features=num_features,
+                                  latent_dim=(32, 32, 32, 1), k=k,
+                                  adj_dropout=args.adj_dropout,
+                                  force_undirected=args.force_undirected,
+                                  relational=args.model == "dgcnn_rs",
+                                  num_relations=num_relations, num_bases=4), gen)
     print(f"Total number of parameters is "
           f"{sum(p.numel() for p in model.parameters())}")
     return model
@@ -368,9 +391,13 @@ def choose_layouts(args, train_graphs):
     """(batch_mode, flat_aggregate, dense_layout) by the JAX CLI's rules,
     printing its `batch mode: ...` and `dense layout: ... (auto)` lines and
     exiting as it does on --dense-chunk, --dense-layout bipartite with
-    dynamic data and --dense-strategy adjacency. Dynamic data gets the
-    unified layout (host-collated slots)."""
+    dynamic data, --dense-strategy adjacency or a model other than igmc,
+    and --flat-aggregate pallas with a model other than igmc. Dynamic data
+    and the other families get the unified layout."""
     flat_aggregate = "pallas" if args.flat_aggregate == "pallas" else None
+    if flat_aggregate is not None and args.model != "igmc":
+        raise SystemExit("--flat-aggregate blocked/pallas applies to the "
+                         "R-GCN trunk; use --model igmc")
     batch_mode = args.batch_mode
     if flat_aggregate is not None:
         if batch_mode == "dense":
@@ -389,6 +416,9 @@ def choose_layouts(args, train_graphs):
     static_data = not dynamic_data(args)
     dense_layout = args.dense_layout
     if dense_layout == "bipartite":
+        if args.model != "igmc":
+            raise SystemExit("--dense-layout bipartite applies to the "
+                             "R-GCN trunk; use --model igmc")
         if batch_mode != "dense" or not static_data:
             raise SystemExit("--dense-layout bipartite needs the device-resident "
                              "dense path (batch-mode dense + static datasets)")
@@ -399,9 +429,10 @@ def choose_layouts(args, train_graphs):
     if dense_layout == "auto":
         # bipartite when the median training graph has >= 128 nodes, the
         # JAX CLI's rule (ml_1m with --max-nodes-per-hop 100: bipartite);
-        # the adjacency strategy keeps the unified layout
-        big = (batch_mode == "dense" and not adjacency and static_data
-               and len(train_graphs) > 0
+        # the adjacency strategy and the other families keep the unified
+        # layout
+        big = (batch_mode == "dense" and args.model == "igmc" and not adjacency
+               and static_data and len(train_graphs) > 0
                and float(np.median(train_graphs.node_counts())) >= 128)
         dense_layout = "bipartite" if big else "unified"
         if batch_mode == "dense":
@@ -434,7 +465,7 @@ def main(argv=None):
         res.snapshot_source()
 
     train_graphs, _, test_graphs, n_features = build_datasets(args, split)
-    model = build_model(args, split, n_features)
+    model = build_model(args, split, n_features, train_graphs)
     logger = make_logger(res, args.save_interval)
     batch_mode, flat_aggregate, dense_layout = choose_layouts(args, train_graphs)
     if args.n_devices == 1:

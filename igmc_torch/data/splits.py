@@ -1,7 +1,7 @@
 """Train/val/test split construction and training-adjacency assembly.
 
 Port of igmc_tpu/data/splits.py (SplitData, _adjacency_values,
-_carve_and_build, load_official_trainvaltest_split and
+_carve_and_build, load_data_monti, load_official_trainvaltest_split and
 create_trainvaltest_split with the ml_25m time split and the split
 pickle cache), keeping the conventions RMSE parity depends on:
 
@@ -10,12 +10,12 @@ pickle cache), keeping the conventions RMSE parity depends on:
   * `testing=True` folds the validation links into the training set.
   * `rating_map` rebuckets raw ratings before label construction;
     `post_rating_map` rebuckets only the adjacency edge types.
-  * The official split shuffles its training links with the stream of
-    np.random.seed(42) (a private RandomState(42) here, which draws the
-    same permutation and leaves the global stream alone).
+  * The Monti and official splits shuffle their training links with the
+    stream of np.random.seed(42) (a private RandomState(42) here, which
+    draws the same permutation and leaves the global stream alone).
 
-The Monti loaders (load_data_monti) are not ported: their .mat files are
-MATLAB v7.3, which the JAX package reads through h5py.
+The Monti datasets' MATLAB v7.3 files are read by data/matio.py, without
+h5py.
 """
 
 from __future__ import annotations
@@ -29,8 +29,11 @@ import numpy as np
 import scipy.sparse as sp
 
 from .loaders import (_movie_genre_features_100k, _movie_genre_features_1m,
-                      _read_numeric, _user_features_100k, _user_features_1m,
+                      _read_numeric, _require, _user_features_100k, _user_features_1m,
                       load_data, map_data, raw_data_dir)
+from .matio import load_matlab_file
+
+MONTI_DATASETS = ("flixster", "douban", "yahoo_music")
 
 
 @dataclass
@@ -65,10 +68,10 @@ def _carve_and_build(labels, idx_nonzero_train, pairs_nonzero_train,
                      idx_nonzero_test, pairs_nonzero_test,
                      num_train, num_val, num_test, testing,
                      class_values, post_rating_map, num_users, num_items):
-    """The split tail of the official loader: the seed-42 shuffle of the
-    training links, the validation carve, the testing-mode fold of the
-    validation links, and the training adjacency (label + 1, optionally
-    post_rating_map-rebucketed).
+    """The split tail of the Monti and official loaders: the seed-42
+    shuffle of the training links, the validation carve, the testing-mode
+    fold of the validation links, and the training adjacency (label + 1,
+    optionally post_rating_map-rebucketed).
 
     Returns (train_labels, u_train, v_train, val_labels, u_val, v_val,
     test_labels, u_test, v_test, rating_mx_train)."""
@@ -112,6 +115,91 @@ def _carve_and_build(labels, idx_nonzero_train, pairs_nonzero_train,
     return (train_labels, u_train_idx, v_train_idx,
             val_labels, u_val_idx, v_val_idx,
             test_labels, u_test_idx, v_test_idx, rating_mx_train)
+
+
+def load_data_monti(
+    dataset: str,
+    testing: bool = False,
+    rating_map=None,
+    post_rating_map=None,
+) -> SplitData:
+    """flixster, douban or yahoo_music from
+    <raw_data_dir()>/<dataset>/training_test_dataset.mat: the Otraining /
+    Otest masks give the training and test links, and 20% of the training
+    links (after the seed-42 shuffle) become validation. Side features are
+    the datasets' graphs: W_users and W_movies (flixster), W_users and an
+    identity (douban), an identity and W_tracks (yahoo_music)."""
+    if dataset not in MONTI_DATASETS:
+        raise ValueError(f"Unknown Monti dataset {dataset}")
+    path_dataset = _require(os.path.join(raw_data_dir(), dataset,
+                                         "training_test_dataset.mat"))
+
+    M = load_matlab_file(path_dataset, "M")
+    if rating_map is not None:
+        M[np.where(M)] = [rating_map[x] for x in M[np.where(M)]]
+
+    Otraining = load_matlab_file(path_dataset, "Otraining")
+    Otest = load_matlab_file(path_dataset, "Otest")
+
+    num_users, num_items = M.shape
+
+    if dataset == "flixster":
+        u_features = load_matlab_file(path_dataset, "W_users")
+        v_features = load_matlab_file(path_dataset, "W_movies")
+    elif dataset == "douban":
+        u_features = load_matlab_file(path_dataset, "W_users")
+        v_features = np.eye(num_items, dtype=np.float32)
+    else:
+        u_features = np.eye(num_users, dtype=np.float32)
+        v_features = load_matlab_file(path_dataset, "W_tracks")
+
+    u_nodes, v_nodes = np.where(M)
+    ratings = M[np.where(M)].astype(np.float64)
+    u_nodes = u_nodes.astype(np.int64)
+    v_nodes = v_nodes.astype(np.int32)
+
+    rating_dict = {r: i for i, r in enumerate(np.sort(np.unique(ratings)).tolist())}
+    labels = np.full((num_users, num_items), -1, dtype=np.int32)
+    labels[u_nodes, v_nodes] = np.array([rating_dict[r] for r in ratings])
+    labels = labels.reshape(-1)
+
+    num_train = np.where(Otraining)[0].shape[0]
+    num_test = np.where(Otest)[0].shape[0]
+    num_val = int(np.ceil(num_train * 0.2))
+    num_train = num_train - num_val
+
+    pairs_nonzero_train = np.stack(np.where(Otraining), axis=1)
+    idx_nonzero_train = (pairs_nonzero_train[:, 0] * num_items
+                         + pairs_nonzero_train[:, 1])
+    pairs_nonzero_test = np.stack(np.where(Otest), axis=1)
+    idx_nonzero_test = pairs_nonzero_test[:, 0] * num_items + pairs_nonzero_test[:, 1]
+
+    class_values = np.sort(np.unique(ratings))
+
+    (train_labels, u_train_idx, v_train_idx,
+     val_labels, u_val_idx, v_val_idx,
+     test_labels, u_test_idx, v_test_idx, rating_mx_train) = _carve_and_build(
+        labels, idx_nonzero_train, pairs_nonzero_train,
+        idx_nonzero_test, pairs_nonzero_test,
+        num_train, num_val, num_test, testing,
+        class_values, post_rating_map, num_users, num_items,
+    )
+
+    return SplitData(
+        u_features=sp.csr_matrix(u_features),
+        v_features=sp.csr_matrix(v_features),
+        adj_train=rating_mx_train,
+        train_labels=train_labels,
+        train_u_indices=u_train_idx,
+        train_v_indices=v_train_idx,
+        val_labels=val_labels,
+        val_u_indices=u_val_idx,
+        val_v_indices=v_val_idx,
+        test_labels=test_labels,
+        test_u_indices=u_test_idx,
+        test_v_indices=v_test_idx,
+        class_values=class_values,
+    )
 
 
 def load_official_trainvaltest_split(

@@ -145,8 +145,7 @@ class IGMC(nn.Module):
             if aligned_t is not None:
                 aligned_t = _drop_edges(aligned_t, edge_seed, cfg)
         N = batch.node_label.shape[0]
-        x = F.one_hot(batch.node_label.long(), cfg.num_features).float()
-        x = x * batch.node_mask[:, None].float()
+        x = node_onehot(batch, cfg.num_features)
 
         if cfg.aggr == "mean":
             amask = aligned[3]       # the degree counts the kept edges only
@@ -180,21 +179,8 @@ class IGMC(nn.Module):
             raise NotImplementedError(
                 "dense_strategy='adjacency' is unified-layout only; the "
                 "bipartite/relslot layouts' cheaper one-hot work supersedes it")
-        mask_f = mask_r = batch.edge_mask
-        if self.training and cfg.adj_dropout > 0:
-            if isinstance(edge_noise, tuple):          # injected keep masks
-                mask_f = batch.edge_mask & edge_noise[0]
-                mask_r = (mask_f if edge_noise[1] is edge_noise[0]
-                          else batch.edge_mask & edge_noise[1])
-            elif batch.edge_id is None:
-                raise ValueError("dense edge dropout needs the batch's packed "
-                                 "edge ids (assemble_dense attaches them)")
-            else:
-                mask_f, mask_r = edge_dropout_dense(
-                    batch.edge_mask, batch.edge_id, edge_noise, cfg.adj_dropout,
-                    cfg.force_undirected)
-        x = F.one_hot(batch.node_label.long(), cfg.num_features).float()
-        x = x * batch.node_mask[..., None].float()
+        mask_f, mask_r = dense_edge_masks(batch, edge_noise, cfg, self.training)
+        x = node_onehot(batch, cfg.num_features)
         n, R = batch.node_slot, cfg.num_relations
         if use_adj:
             # one build for every layer; masks tied across directions
@@ -221,6 +207,34 @@ class IGMC(nn.Module):
             users.append(x[:, 0])
             items.append(x[:, item_row])
         return torch.cat(users + items, dim=1)
+
+
+def dense_edge_masks(batch: DenseBatch, edge_noise, cfg, training: bool):
+    """(mask_f, mask_r) [B, E] of a dense batch's kept edges per direction:
+    the edge mask in eval mode or without dropout; in training, the hash
+    dropout of its packed edge ids seeded by `edge_noise`, or `edge_noise`
+    as a pair of injected keep masks (forward, reverse). `cfg` carries
+    adj_dropout and force_undirected."""
+    mask_f = mask_r = batch.edge_mask
+    if training and cfg.adj_dropout > 0:
+        if isinstance(edge_noise, tuple):          # injected keep masks
+            mask_f = batch.edge_mask & edge_noise[0]
+            mask_r = (mask_f if edge_noise[1] is edge_noise[0]
+                      else batch.edge_mask & edge_noise[1])
+        elif batch.edge_id is None:
+            raise ValueError("dense edge dropout needs the batch's packed "
+                             "edge ids (assemble_dense attaches them)")
+        else:
+            mask_f, mask_r = edge_dropout_dense(
+                batch.edge_mask, batch.edge_id, edge_noise, cfg.adj_dropout,
+                cfg.force_undirected)
+    return mask_f, mask_r
+
+
+def node_onehot(batch, num_features: int) -> torch.Tensor:
+    """The one-hot hop labels of a batch's node rows, zero on padding."""
+    x = F.one_hot(batch.node_label.long(), num_features).float()
+    return x * batch.node_mask[..., None].float()
 
 
 def _drop_edges(plan, edge_seed: int, cfg: IGMCConfig):
@@ -284,11 +298,14 @@ def igmc_forward_dense_chunked(model: IGMC, batch: DenseBatch, chunk: int,
                                       chunk_dense_batch(batch, chunk))])
 
 
-def arr_regularizer(model: IGMC) -> torch.Tensor:
-    """Adjacent-rating regularizer: the sum over layers of
-    ||W[1:] - W[:-1]||^2 with W = att @ basis, [R, Cin, Cout]."""
+def arr_regularizer(model: nn.Module) -> torch.Tensor:
+    """Adjacent-rating regularizer of any model family: the sum over its
+    R-GCN layers of ||W[1:] - W[:-1]||^2 with W = att @ basis, [R, Cin,
+    Cout]. GCN layers (the GNN and DGCNN trunks) carry no relation weights
+    and add nothing, as in the JAX package."""
     reg = 0.0
     for conv in model.convs:
-        w = conv.relation_weights()
-        reg = reg + ((w[1:] - w[:-1]) ** 2).sum()
+        if isinstance(conv, RGCNConv):
+            w = conv.relation_weights()
+            reg = reg + ((w[1:] - w[:-1]) ** 2).sum()
     return reg

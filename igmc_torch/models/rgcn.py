@@ -1,8 +1,8 @@
 """The basis-decomposed relational graph convolution's parameters.
 
-Port of igmc_tpu/models/rgcn.py (rgcn_init, rgcn_relation_weights and the
-dense layers) as an nn.Module and functions. The layer computes, as PyG
-1.4.2's RGCNConv does,
+Port of igmc_tpu/models/rgcn.py (rgcn_init, rgcn_relation_weights,
+gcn_init and the dense layers) as nn.Modules and functions. The layer
+computes, as PyG 1.4.2's RGCNConv does,
 
     W_r  = sum_b att[r, b] * basis[b]                 (basis decomposition)
     out_i = aggr_{e: dst_e = i} x[src_e] @ W_{type_e} + x_i @ root + bias
@@ -25,6 +25,11 @@ sum_e mask_e * x[src_e] @ W_{type_e}, the one-hot form's sum, with O(E)
 gathers in place of O(E * n) products. The adjacency strategy builds the
 per-relation [B, R, n, n] adjacency once per forward and contracts it with
 the per-node transforms in every layer, as the JAX package does.
+
+GCNConv and the GCN dense layer (gcn_dense_plan, gcn_dense_layer,
+gcn_dense_apply) are the trunk of the GNN and DGCNN families
+(models/families.py): the JAX package's gcn_init and gcn_dense_apply,
+computed with the same gathers and index_add as the R-GCN layers.
 
 compute_dtype bfloat16 rounds where the JAX package rounds and sums in
 float32 where it accumulates in float32 (preferred_element_type): a
@@ -340,3 +345,69 @@ def rgcn_dense_adj_apply(conv: RGCNConv, x, adj_f, adj_r=None, aggr: str = "mean
     if aggr == "mean":
         agg = agg * inv_deg[..., None]
     return agg + x @ conv.root + conv.bias
+
+
+class GCNConv(nn.Module):
+    """weight [Cin, Cout] ~ glorot U(±sqrt(6 / (Cin + Cout))), bias [Cout]
+    zero (PyG's GCNConv init, the JAX package's gcn_init); the reference's
+    state_dict names `convs.{i}.{weight,bias}`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: torch.Generator):
+        super().__init__()
+        bound = math.sqrt(6.0 / (in_channels + out_channels))
+        self.weight = nn.Parameter(uniform_(torch.empty(in_channels, out_channels),
+                                            bound, generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+
+@dataclass
+class GCNPlan:
+    """A dense batch's GCN propagation, shared by every layer of one
+    forward: message m reads row gather[m] of h = x @ weight ([B * n, C]),
+    is scaled by coef[m] and lands in row scatter[m]; forward messages
+    (src -> dst) first. self_coef [B * n, 1] scales each row's own h."""
+
+    gather: torch.Tensor      # int64 [2 * B * E]
+    scatter: torch.Tensor     # int64 [2 * B * E]
+    coef: torch.Tensor        # float32 [2 * B * E]
+    self_coef: torch.Tensor   # float32 [B * n, 1]
+
+
+def gcn_dense_plan(edge_src, edge_dst, mask_f, mask_r, node_mask) -> GCNPlan:
+    """The symmetric normalisation D^-1/2 (A + I) D^-1/2 of [B, E] forward
+    edges applied in both directions: a node's degree counts its kept
+    forward edges at dst, its kept reverse edges at src, and its self-loop
+    (the node mask); a degree of 0 (a padding row) gives 0."""
+    B, n = node_mask.shape
+    base = torch.arange(B, device=edge_src.device)[:, None] * n
+    rows_s = (base + edge_src.long()).reshape(-1)
+    rows_d = (base + edge_dst.long()).reshape(-1)
+    mf, mr = mask_f.reshape(-1).float(), mask_r.reshape(-1).float()
+    nm = node_mask.reshape(-1).float()
+    deg = (torch.zeros_like(nm).index_add_(0, rows_d, mf).index_add_(0, rows_s, mr)
+           + nm)
+    dinv = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), torch.zeros_like(deg))
+    norm = dinv[rows_s] * dinv[rows_d]
+    return GCNPlan(torch.cat([rows_s, rows_d]), torch.cat([rows_d, rows_s]),
+                   torch.cat([norm * mf, norm * mr]), (dinv * dinv * nm)[:, None])
+
+
+def gcn_dense_layer(conv: GCNConv, x: torch.Tensor, plan: GCNPlan) -> torch.Tensor:
+    """One GCN layer over node states x [B, n, Cin]: [B, n, Cout] =
+    the normalised neighbour sum of h = x @ weight + the self-loop + bias."""
+    B, n, _ = x.shape
+    h = (x @ conv.weight).reshape(B * n, -1)
+    msg = h.index_select(0, plan.gather) * plan.coef[:, None]
+    agg = torch.zeros_like(h).index_add(0, plan.scatter, msg)
+    return (agg + h * plan.self_coef + conv.bias).reshape(B, n, -1)
+
+
+def gcn_dense_apply(conv: GCNConv, x, edge_src, edge_dst, mask_f, mask_r,
+                    node_mask) -> torch.Tensor:
+    """The GCN layer over a dense batch (self-loops, symmetric
+    normalisation, forward-only [B, E] edges applied in both directions,
+    `mask_f` / `mask_r` the kept edges per direction): the function of the
+    JAX package's gcn_dense_apply."""
+    plan = gcn_dense_plan(edge_src, edge_dst, mask_f, mask_r, node_mask)
+    return gcn_dense_layer(conv, x, plan)

@@ -1,7 +1,9 @@
 """Training and evaluation: masked MSE + ARR, Adam with step LR decay,
 RMSE of one model or of a checkpoint ensemble.
 
-Port of igmc_tpu/train/loop.py on one device, in two layouts:
+Port of igmc_tpu/train/loop.py on one device, for every model family
+(IGMC, GNN, DGCNN, DGCNN_RS: `model(batch, noise)` -> [B] predictions,
+ARR over its R-GCN layers), in two layouts:
 
   * dense (``batch_mode="dense"``, the JAX CLI's default for static data):
     the packed datasets live on the device (batching/device_data.py), the
@@ -18,10 +20,10 @@ Port of igmc_tpu/train/loop.py on one device, in two layouts:
     layout host-collated instead: BatchLoader(batch_mode="dense") extracts
     and collates unified slot batches on its prefetch threads, one step
     per batch, as the JAX package's dynamic dense path.
-  * flat (``batch_mode="flat"``): host-collated batches, static or
-    dynamic, through the fused aggregate kernels, the JAX package's
-    ``flat_aggregate="pallas"``; the plans are built on the loader's
-    prefetch threads.
+  * flat (``batch_mode="flat"``, IGMC only): host-collated batches,
+    static or dynamic, through the fused aggregate kernels, the JAX
+    package's ``flat_aggregate="pallas"``; the plans are built on the
+    loader's prefetch threads.
 
 The other flat engines (segment, blocked) and meshes are not ported yet and
 raise. Sums stay on the device across batches and steps, an epoch's graph
@@ -45,7 +47,7 @@ from ..batching.dataset import BatchLoader
 from ..batching.dense import plan_bipartite_buckets, plan_dense_buckets
 from ..batching.device_data import DeviceDataset, assemble_dense, live_rows
 from ..device import resolve_device
-from ..models.igmc import arr_regularizer, draw_noise, slice_noise
+from ..models.igmc import IGMC, arr_regularizer, draw_noise, slice_noise
 from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
 
 
@@ -144,8 +146,8 @@ def make_chunked_dense_train_step(model, optimizer, chunk: int,
             sse = sse + part.detach()
             del batch, preds, part
         loss = sse / n
-        if ARR != 0.0:
-            reg = ARR * arr_regularizer(model)
+        reg = ARR * arr_regularizer(model) if ARR != 0.0 else 0.0
+        if torch.is_tensor(reg):        # GCN-only families carry no ARR term
             reg.backward()
             loss = loss + reg.detach()
         optimizer.step()
@@ -404,6 +406,15 @@ def _check_layout(batch_mode: str, flat_aggregate, what: str):
                                   f"only, not {flat_aggregate!r}")
 
 
+def _check_family(model, batch_mode: str):
+    """The flat layout runs IGMC only: the other families' flat forms need
+    the segment engine, which is not ported."""
+    if batch_mode == "flat" and not isinstance(model, IGMC):
+        raise NotImplementedError(
+            f"igmc_torch: {type(model).__name__} on the flat layout needs the "
+            f"segment engine, which is not ported (use batch_mode='dense')")
+
+
 def _check_host_layout(dense_layout: str):
     if dense_layout != "unified":
         raise ValueError(f"dense_layout={dense_layout!r} needs static (packed) "
@@ -466,6 +477,7 @@ def test_once(
               "the layout; using the flat path")
         batch_mode = "flat"
     _check_layout(batch_mode, flat_aggregate, "evaluation")
+    _check_family(model, batch_mode)
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev).eval()
     if batch_mode == "dense" and dense_chunk and dense_chunk < batch_size:
@@ -566,6 +578,7 @@ def train_multiple_epochs(
     NotImplementedError."""
     flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
     _check_layout(batch_mode, flat_aggregate, "training")
+    _check_family(model, batch_mode)
     if batch_mode == "dense" and flat_aggregate is not None:
         raise ValueError("flat_aggregate applies to batch_mode='flat'")
     if mesh is not None:

@@ -115,19 +115,21 @@ def test_training_run_matches_jax_cli(raw, tmp_path, monkeypatch, capsys):
     (["--n-devices", "2"], "--n-devices 2"),
     (["--dynamic-train", "--parallel", "ep"], "--parallel ep"),
     (["--dynamic-dataset", "--visualize"], "--visualize (it draws with matplotlib)"),
-    (["--model", "dgcnn"], "--model dgcnn"),
+    (["--model", "dgcnn", "--parallel", "ep"], "--parallel ep"),
     (["--batch-mode", "flat", "--flat-aggregate", "segment"], "segment engine"),
-    (["--dynamic-test", "--model", "gnn"], "--model gnn"),
+    (["--dynamic-test", "--model", "gnn", "--visualize"],
+     "--visualize (it draws with matplotlib)"),
     (["--dense-chunk", "10", "--parallel", "ep"], "--parallel ep"),
     (["--visualize"], "--visualize (it draws with matplotlib)"),
     (["--profile-dir", "p", "--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
     (["--dynamic-val", "--n-devices", "4"], "--n-devices 4"),
-    (["--model", "gnn"], "--model gnn"),
-    (["--model", "dgcnn_rs"], "--model dgcnn_rs"),
+    (["--model", "gnn", "--batch-mode", "flat"], "segment engine"),
+    (["--model", "dgcnn_rs", "--n-devices", "2"], "--n-devices 2"),
     (["--n-devices", "8", "--compute-dtype", "bfloat16"], "--n-devices 8"),
     (["--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
     (["--batch-mode", "flat"], "segment engine"),
-    (["--dense-chunk", "5", "--dynamic-train", "--model", "dgcnn"], "--model dgcnn"),
+    (["--dense-chunk", "5", "--dynamic-train", "--model", "dgcnn",
+      "--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
     (["--dense-chunk", "5", "--n-devices", "2"], "--n-devices 2"),
 ])
 def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch):
@@ -138,8 +140,9 @@ def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch)
 
 
 def test_cli_defaults_datasets_and_device(raw, tmp_path, monkeypatch):
-    """The JAX CLI's defaults plus --device cuda; the Monti datasets exit
-    naming why; the default device raises without a card."""
+    """The JAX CLI's defaults plus --device cuda; a Monti dataset whose
+    file is absent raises naming it; the default device raises without a
+    card."""
     args = build_parser().parse_args([])
     assert (args.device, args.batch_mode, args.dense_layout, args.superbatch,
             args.dense_buckets, args.epochs, args.batch_size) == (
@@ -147,7 +150,8 @@ def test_cli_defaults_datasets_and_device(raw, tmp_path, monkeypatch):
     assert unported_flags(args) == []
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("IGMC_RAW_DATA", raw)
-    with pytest.raises(SystemExit, match="flixster.*not ported.*h5py"):
+    with pytest.raises(FileNotFoundError,
+                       match="flixster/training_test_dataset.mat not found"):
         port_main(["--data-name", "flixster", "--device", "cpu"])
     with pytest.raises(SystemExit, match="conflicts"):
         port_main(BASE + ["--flat-aggregate", "pallas", "--batch-mode", "dense",

@@ -26,7 +26,9 @@ PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
                 "igmc_torch.cli.main", "igmc_torch.graphs.native",
                 "igmc_torch.native.build", "igmc_torch.data.loaders",
                 "igmc_torch.data.splits", "igmc_torch.data.synthetic",
-                "igmc_torch.train.flaxmsgpack")
+                "igmc_torch.train.flaxmsgpack", "igmc_torch.data.hdf5",
+                "igmc_torch.data.matio", "igmc_torch.models.families",
+                "igmc_torch.ops.sort_pool")
 
 
 def _port_sources():
