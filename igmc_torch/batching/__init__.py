@@ -2,11 +2,13 @@ from .batch import GraphBatch, bucket_for, collate, pad_ladder, topk_sum_bound
 from .dataset import BatchLoader, DynamicGraphDataset, StaticGraphDataset
 from .dense import (DenseBatch, DenseBucket, collate_dense, plan_bipartite_buckets,
                     plan_dense_buckets, plan_rel_caps, slot_perm)
-from .device_data import DeviceDataset, assemble_dense, live_rows
+from .device_data import (DeviceDataset, assemble_batch, assemble_dense,
+                          capacity_bound, live_rows, plan_gid_epoch)
 
 __all__ = ["BatchLoader", "DenseBatch", "DenseBucket", "DeviceDataset",
            "DynamicGraphDataset",
-           "GraphBatch", "StaticGraphDataset", "assemble_dense", "bucket_for",
-           "collate", "collate_dense", "live_rows", "pad_ladder",
+           "GraphBatch", "StaticGraphDataset", "assemble_batch", "assemble_dense",
+           "bucket_for", "capacity_bound", "collate", "collate_dense", "live_rows",
+           "pad_ladder", "plan_gid_epoch",
            "plan_bipartite_buckets", "plan_dense_buckets", "plan_rel_caps", "slot_perm",
            "topk_sum_bound"]

@@ -11,6 +11,12 @@ Layout invariants:
     the batch index of its forward copy.
   * padded edges point at node 0 with edge_mask 0; padded nodes/graphs are
     masked via node_mask/graph_mask.
+  * `edge_id` is the packed edge id of each edge's forward copy, the key
+    of the segment engine's hash edge dropout (ops/dropout.py
+    flat_edge_keep): with the graphs' dataset ids, edge j of graph gid gets
+    edge_offsets[gid] + j (a static dataset's packed offsets, the id
+    batching/device_data.py assemble_batch gives it) or, without offsets,
+    gid * DYNAMIC_EDGE_STRIDE + j; without ids, its index in the batch.
 """
 
 from __future__ import annotations
@@ -23,6 +29,11 @@ import numpy as np
 import torch
 
 from ..graphs.extract import Subgraph
+
+# Host-collated edge keys of a dynamic dataset (no packed tables): graph
+# gid's edge j is gid * stride + j, distinct for every (gid, j) while a
+# graph has fewer than 2**31 forward edges.
+DYNAMIC_EDGE_STRIDE = 1 << 31
 
 
 @dataclass
@@ -51,6 +62,10 @@ class GraphBatch:
     # its src-sorted twin (block_align_edges_transposed), same layout, for
     # the aggregate's gradient: attached by training loaders only
     aligned_t: Optional[Tuple[torch.Tensor, ...]] = None
+    # the blocked engine's dst- and src-major plans (ops/blocked.py
+    # BlockedEdges), attached by BatchLoader(flat_aggregate="blocked")
+    blocked: Optional[object] = None
+    edge_id: Optional[torch.Tensor] = None  # int64 [E] packed id of the forward copy
 
     @property
     def num_graphs(self) -> int:
@@ -65,11 +80,14 @@ class GraphBatch:
         return self.edge_src.shape[0]
 
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
-        """A copy with every tensor (the aligned plans included) on `device`."""
+        """A copy with every tensor (the aligned and blocked plans
+        included) on `device`."""
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, tuple):
+            if f.name == "blocked":
+                moved[f.name] = None if v is None else v.to(device, non_blocking)
+            elif isinstance(v, tuple):
                 moved[f.name] = tuple(a.to(device, non_blocking=non_blocking)
                                       for a in v)
             else:
@@ -112,11 +130,15 @@ def collate(
     num_graphs: int,
     node_pad: int,
     edge_pad: int,
+    gids=None,
+    edge_offsets: Optional[np.ndarray] = None,
 ) -> GraphBatch:
     """Merge subgraphs into one padded disjoint batch-graph (CPU tensors).
 
     `num_graphs`/`node_pad`/`edge_pad` must be >= the actual totals; the
-    remainder is masked padding.
+    remainder is masked padding. `gids` (the graphs' dataset indices) and
+    `edge_offsets` (a static dataset's packed offsets) key `edge_id` as the
+    module docstring says; padding edges get 0.
     """
     B = num_graphs
     if len(graphs) > B:
@@ -143,6 +165,13 @@ def collate(
     target_u = np.zeros(B, dtype=np.int32)
     target_v = np.zeros(B, dtype=np.int32)
     u_feat, v_feat = _feature_tables(graphs, B)
+    edge_id = np.zeros(edge_pad, dtype=np.int64)
+    if gids is None:
+        base = None
+    else:
+        gids = np.asarray(gids, dtype=np.int64)
+        base = (gids * DYNAMIC_EDGE_STRIDE if edge_offsets is None
+                else np.asarray(edge_offsets, dtype=np.int64)[gids])
 
     n_off = 0
     e_off = 0
@@ -164,6 +193,10 @@ def collate(
             e_off, e_off + ne, dtype=np.int32
         )
         edge_mask[e_off : e_off + 2 * ne] = True
+        fwd_id = (np.arange(e_off, e_off + ne) if base is None
+                  else base[gi] + np.arange(ne))
+        edge_id[e_off : e_off + ne] = fwd_id
+        edge_id[e_off + ne : e_off + 2 * ne] = fwd_id
         y[gi] = g.y
         graph_mask[gi] = True
         target_u[gi] = n_off            # target user is first user node
@@ -190,6 +223,7 @@ def collate(
         target_v=t(target_v),
         u_feat=None if u_feat is None else t(u_feat),
         v_feat=None if v_feat is None else t(v_feat),
+        edge_id=t(edge_id),
     )
 
 

@@ -16,13 +16,18 @@ Port of igmc_tpu/batching/dataset.py:
     (from the dataset's counts, or estimated from 64 sampled graphs and
     extended when a batch overflows them), in order or shuffled per epoch,
     on a small thread pool that extracts, collates and plans ahead of the
-    consumer. Flat batches carry the fused aggregate kernel's
-    dst-block-aligned edge plan with its dropout key stream (the JAX
-    package's `flat_aggregate="pallas"` mode), and a training loader's
-    (shuffle=True) the src-sorted twin plan the aggregate's gradient
-    walks; dense batches (`batch_mode="dense"`) are unified slot batches
-    with per-graph slot ladders and edge ids for the dense edge dropout.
-    No superbatches or data parallelism.
+    consumer. Flat batches carry the packed edge ids the segment engine's
+    edge dropout keys on and, as `flat_aggregate` asks (the JAX package's
+    loader argument), no plan (None, "segment", "auto": the segment
+    engine), the blocked engine's dst- and src-major plans ("blocked"), or
+    the fused aggregate kernel's dst-block-aligned edge plan with its
+    dropout key stream and, for a training loader (shuffle=True), the
+    src-sorted twin plan the aggregate's gradient walks ("pallas"); dense
+    batches (`batch_mode="dense"`) are unified slot batches with per-graph
+    slot ladders and edge ids for the dense edge dropout. No superbatches
+    (the JAX package pads a training superbatch to the ladder maximum and
+    scans it; here each batch is one step, in the same order) or data
+    parallelism.
 
 `max_num` subsampling draws the reference's permutation of
 np.random.seed(123), from a private RandomState(123).
@@ -48,6 +53,7 @@ from ..graphs.extract import Subgraph, extract_many
 from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_edges,
                                       block_align_edges_transposed,
                                       plan_capacity_blocks)
+from ..ops.blocked import plan_blocked_edges
 from .batch import GraphBatch, bucket_for, collate, pad_ladder, topk_sum_bound
 from .dense import collate_dense
 
@@ -313,6 +319,8 @@ def _map_tensors(batch, fn):
         v = getattr(batch, f.name)
         if isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
             out[f.name] = tuple(fn(a) for a in v)
+        elif hasattr(v, "map"):                     # blocked plans
+            out[f.name] = v.map(fn)
         elif isinstance(v, torch.Tensor):
             out[f.name] = fn(v)
     return dataclasses.replace(batch, **out)
@@ -323,10 +331,13 @@ class BatchLoader:
     the consumer.
 
     `batch_mode="flat"` yields GraphBatches whose (node_pad, edge_pad)
-    come from geometric ladders, node_pad rounded up to a multiple of
-    PLAN_ROWS (the kernel's output chunk), with the aggregate kernel's
-    plans sized by plan_capacity_blocks so every batch of one bucket has
-    the same plan shape. `batch_mode="dense"` yields unified-layout
+    come from geometric ladders, with `edge_id` keyed by the graphs'
+    dataset ids. `flat_aggregate` None, "segment" or "auto" attaches no
+    plan; "blocked" the blocked engine's plans (batch.blocked) and
+    "pallas" the aggregate kernel's (batch.aligned), both sized by
+    plan_capacity_blocks so every batch of one bucket has the same plan
+    shape; with "pallas" node_pad is rounded up to a multiple of PLAN_ROWS
+    (the kernel's output chunk). `batch_mode="dense"` yields unified-layout
     DenseBatches whose node and edge slots come from per-graph ladders,
     carrying `edge_id` (collate_dense; a static dataset's is the packed
     edge index). The ladders cover the dataset's worst case when it has
@@ -351,9 +362,17 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, prefetch: int = 2, batch_mode: str = "flat",
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, flat_aggregate: Optional[str] = None):
         if batch_mode not in ("flat", "dense"):
             raise ValueError(f"unknown batch_mode {batch_mode!r} (flat|dense)")
+        if flat_aggregate in ("segment", "auto"):
+            flat_aggregate = None
+        if flat_aggregate not in (None, "blocked", "pallas"):
+            raise ValueError(f"unknown flat_aggregate {flat_aggregate!r} "
+                             f"(segment|auto|blocked|pallas)")
+        if batch_mode == "dense" and flat_aggregate is not None:
+            raise ValueError("batch_mode='dense' conflicts with flat_aggregate")
+        self.flat_aggregate = flat_aggregate
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -426,15 +445,25 @@ class BatchLoader:
                              gids=idxs, edge_offsets=(None if packed is None
                                                       else packed.edge_offsets))
 
-    def _make_batch_flat(self, graphs) -> GraphBatch:
+    def _make_batch_flat(self, graphs, idxs) -> GraphBatch:
         node_pad = self._bucket(sum(g.num_nodes for g in graphs),
                                 self.node_ladder, "node")
         edge_pad = self._bucket(sum(g.num_edges for g in graphs),
                                 self.edge_ladder, "edge")
-        # the kernel's output chunking needs num_nodes % rows == 0
-        node_pad = -(-node_pad // PLAN_ROWS) * PLAN_ROWS
-        batch = collate(graphs, self.batch_size, node_pad, edge_pad)
+        if self.flat_aggregate == "pallas":
+            # the kernel's output chunking needs num_nodes % rows == 0
+            node_pad = -(-node_pad // PLAN_ROWS) * PLAN_ROWS
+        packed = getattr(self.dataset, "packed", None)
+        batch = collate(graphs, self.batch_size, node_pad, edge_pad, gids=idxs,
+                        edge_offsets=None if packed is None else packed.edge_offsets)
+        if self.flat_aggregate is None:
+            return batch
         nb = plan_capacity_blocks(node_pad, edge_pad, PLAN_ROWS, PLAN_EBLK)
+        if self.flat_aggregate == "blocked":
+            batch.blocked = plan_blocked_edges(
+                batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
+                batch.edge_canon, node_pad, PLAN_ROWS, PLAN_EBLK, num_blocks=nb)
+            return batch
         edges = (batch.edge_src.numpy(), batch.edge_dst.numpy(),
                  batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad)
         plan_kw = dict(eblk=PLAN_EBLK, rows=PLAN_ROWS, num_blocks=nb,
@@ -453,7 +482,7 @@ class BatchLoader:
         idxs = np.asarray(idxs, dtype=np.int64)
         graphs = self._fetch(idxs)
         batch = (self._make_batch_dense(graphs, idxs) if self.batch_mode == "dense"
-                 else self._make_batch_flat(graphs))
+                 else self._make_batch_flat(graphs, idxs))
         if self.pin_memory:
             batch = _map_tensors(batch, torch.Tensor.pin_memory)
         return batch

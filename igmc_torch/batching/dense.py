@@ -43,12 +43,7 @@ import numpy as np
 import torch
 
 from ..graphs.extract import Subgraph
-from .batch import _feature_tables
-
-# Host-collated edge keys of a dynamic dataset (no packed tables): graph
-# gid's edge j is gid * stride + j, distinct for every (gid, j) while a
-# graph has fewer than 2**31 forward edges.
-DYNAMIC_EDGE_STRIDE = 1 << 31
+from .batch import DYNAMIC_EDGE_STRIDE, _feature_tables
 
 
 @dataclass

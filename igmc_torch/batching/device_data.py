@@ -1,11 +1,19 @@
-"""Device-resident datasets: the packed subgraphs uploaded once, dense
-batches assembled on the device from graph-id vectors.
+"""Device-resident datasets: the packed subgraphs uploaded once, flat and
+dense batches assembled on the device from graph-id vectors.
 
 Port of igmc_tpu/batching/device_data.py (_compact_int, DeviceDataset with
-rel_sort, assemble_dense with rel_caps, live_rows), in torch ops on an
-explicit device. A step uploads nothing but its [B] graph ids
-(the epoch loops upload an epoch's ids at once); the row gathers from the
-packed tables run on the device, once per batch.
+rel_sort, _ragged_slots, assemble_batch, assemble_dense with rel_caps,
+capacity_bound, plan_gid_epoch, live_rows), in torch ops on an explicit
+device. A step uploads nothing but its [B] graph ids (the epoch loops
+upload an epoch's ids at once); the row gathers from the packed tables
+run on the device, once per batch.
+
+assemble_batch builds the flat GraphBatch of the JAX package's: nodes of
+the graphs in order, all forward edges first and then all reverse ones,
+`edge_canon` pointing each reverse edge at its forward copy, the targets
+at each graph's first user and first item row, the side-feature rows;
+and `edge_id`, each edge's packed index, the key of the segment engine's
+hash edge dropout, as the host collate of the same graphs gives it.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .batch import GraphBatch, topk_sum_bound
 from .dense import DenseBatch
 
 
@@ -91,6 +100,92 @@ class DeviceDataset:
             self._slot_maps[rel_caps] = tuple(
                 torch.from_numpy(a.astype(np.int64)).to(self.device) for a in (rel, local))
         return self._slot_maps[rel_caps]
+
+
+def _ragged_slots(counts: torch.Tensor, starts: torch.Tensor, pad: int):
+    """Each of `pad` slots mapped to (its graph in the batch, its offset in
+    that graph, valid): graphs own consecutive runs of counts[b] slots
+    from starts[b]; slots past the last run are invalid (graph clamped to
+    the last, offset 0)."""
+    cum = torch.cumsum(counts, 0)
+    i = torch.arange(pad, device=counts.device)
+    b = torch.searchsorted(cum, i, right=True)
+    valid = b < counts.shape[0]
+    b = b.clamp_max(counts.shape[0] - 1)
+    local = i - starts[b]
+    valid = valid & (local < counts[b])
+    return b, torch.where(valid, local, 0), valid
+
+
+def assemble_batch(dd: DeviceDataset, gids: torch.Tensor, node_pad: int,
+                   edge_pad: int) -> GraphBatch:
+    """One flat GraphBatch on dd's device from graph ids `gids` [B] (int64
+    on that device; -1 = a padding graph) in `node_pad` node rows and
+    `edge_pad` directed edge slots (even: forward half, then reverse half),
+    as the JAX package assembles it; with `edge_id`, each edge's packed
+    index (the forward copy's for a reverse edge; padding edges 0)."""
+    if edge_pad % 2:
+        raise ValueError("edge_pad must be even (forward + reverse halves)")
+    ef_pad = edge_pad // 2
+    gmask = gids >= 0
+    g = torch.where(gmask, gids, 0)
+    counts_n = (dd.node_off[g + 1] - dd.node_off[g]) * gmask
+    counts_e = (dd.edge_off[g + 1] - dd.edge_off[g]) * gmask    # forward edges
+    starts_n = torch.cumsum(counts_n, 0) - counts_n
+    starts_e = torch.cumsum(counts_e, 0) - counts_e
+
+    nb, nlocal, nvalid = _ragged_slots(counts_n, starts_n, node_pad)
+    node_label = torch.where(nvalid, dd.node_label[dd.node_off[g[nb]] + nlocal].int(), 0)
+    node2graph = torch.where(nvalid, nb, 0).int()
+
+    eb, elocal, evalid = _ragged_slots(counts_e, starts_e, ef_pad)
+    epos = dd.edge_off[g[eb]] + elocal
+    base = starts_n[eb]
+    f_src = torch.where(evalid, base + dd.src[epos].long(), 0).int()
+    f_dst = torch.where(evalid, base + dd.dst[epos].long(), 0).int()
+    f_type = torch.where(evalid, dd.etype[epos].int(), 0)
+    f_id = torch.where(evalid, epos if dd.edge_id is None else dd.edge_id[epos], 0)
+    fwd_ids = torch.arange(ef_pad, device=gids.device, dtype=torch.int32)
+    feat = lambda table: None if table is None else table[g] * gmask[:, None]
+    return GraphBatch(
+        node_label=node_label, edge_src=torch.cat([f_src, f_dst]),
+        edge_dst=torch.cat([f_dst, f_src]), edge_type=torch.cat([f_type, f_type]),
+        edge_canon=torch.cat([fwd_ids, fwd_ids]), node2graph=node2graph,
+        node_mask=nvalid, edge_mask=torch.cat([evalid, evalid]),
+        y=torch.where(gmask, dd.y[g], 0.0), graph_mask=gmask,
+        target_u=starts_n.int(), target_v=(starts_n + dd.num_u[g]).int(),
+        u_feat=feat(dd.u_feat), v_feat=feat(dd.v_feat),
+        edge_id=torch.cat([f_id, f_id]))
+
+
+def capacity_bound(node_counts, edge_counts, batch_size: int):
+    """(node_pad, edge_pad) that hold ANY batch of `batch_size` graphs: the
+    sums of the batch_size largest node and directed edge counts
+    (topk_sum_bound), rounded up to multiples of 8 and 16."""
+    max_n, max_e = topk_sum_bound(node_counts, edge_counts, batch_size)
+    rnd = lambda v, m: int(-(-max(v, m) // m) * m)
+    return rnd(max_n, 8), rnd(max_e, 16)
+
+
+def plan_gid_epoch(order: np.ndarray, batch_graphs: int, superbatch: int):
+    """The JAX package's [K, B] graph-id blocks of a pass in `order`
+    (K = max(superbatch, 1)): batches of B ids, the last padded with -1,
+    stacked K at a time, the last block padded with all-(-1) rows. A list
+    of int32 arrays (the JAX package's `supers`; its `rest` is empty)."""
+    B = batch_graphs
+    blocks = []
+    for s in range(0, len(order), B):
+        blk = np.asarray(order[s:s + B]).astype(np.int32)
+        if len(blk) < B:
+            blk = np.concatenate([blk, np.full(B - len(blk), -1, np.int32)])
+        blocks.append(blk)
+    K = superbatch if superbatch > 1 else 1
+    n_super = len(blocks) // K
+    supers = [np.stack(blocks[i * K:(i + 1) * K]) for i in range(n_super)]
+    rem = blocks[n_super * K:]
+    if rem:
+        supers.append(np.stack(rem + [np.full(B, -1, np.int32)] * (K - len(rem))))
+    return supers
 
 
 def assemble_dense(dd: DeviceDataset, gids: torch.Tensor, node_slot: int,

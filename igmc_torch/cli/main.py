@@ -16,26 +16,27 @@ auto|numpy|native`), the datasets under
 static ones with the JAX package's `.npz` subgraph cache, or extracted on
 the fly per split (`--dynamic-train/-val/-test`, `--dynamic-dataset` for
 all three; `--reprocess` removes the caches and rewrites the split
-pickle), the model families (`--model igmc|gnn|dgcnn|dgcnn_rs`; the
-three baselines on the dense layout), and main's batch-mode and
-dense-layout rules, training, `--ensemble` and `--transfer` (from `.pth`
-or the JAX package's `.ckpt` checkpoints), `--profile-dir` (a
-torch.profiler trace of the second epoch), with the same printed lines
-and `log.txt` lines,
+pickle), the model families (`--model igmc|gnn|dgcnn|dgcnn_rs`, on
+either layout), and main's batch-mode and dense-layout rules, training,
+`--ensemble` and `--transfer` (from `.pth` or the JAX package's `.ckpt`
+checkpoints), `--profile-dir` (a torch.profiler trace of the second
+epoch), with the same printed lines and `log.txt` lines,
 and the main path's options: `--compute-dtype bfloat16`, `--dense-chunk N`
 (giant batches, static data), `--dense-strategy adjacency` (unified
 layout only). Dynamic data runs the dense layout host-collated (unified
-slots). `--flat-aggregate pallas` runs the flat layout through the fused
-aggregate kernels; `--flat-aggregate segment` and `auto` select no flat
-engine, so the dense layout runs, as in the JAX CLI.
+slots). The flat layout runs every flat engine of the JAX CLI:
+`--batch-mode flat` the segment engine (with `--conv-strategy`, every
+family; static data device-resident), `--flat-aggregate blocked` the
+blocked engine and `--flat-aggregate pallas` the fused aggregate kernels
+(both IGMC only, and both force the flat layout); `--flat-aggregate
+segment` and `auto` select no flat engine, so without `--batch-mode flat`
+the dense layout runs, as in the JAX CLI.
 
 Flags whose code is not ported yet exit with a message naming the flag:
-`--parallel ep`, `--n-devices` > 1, `--visualize` (it draws with
-matplotlib), the blocked flat engine, and the flat layout without
-`--flat-aggregate pallas` (the segment engine).
-`--compilation-cache-dir`, `--conv-strategy` and `--ep-local-aggregate`
-are accepted and change nothing here (the port compiles no XLA programs,
-and the other two select engines of paths not ported).
+`--parallel ep`, `--n-devices` > 1 and `--visualize` (it draws with
+matplotlib). `--compilation-cache-dir` and `--ep-local-aggregate` are
+accepted and change nothing here (the port compiles no XLA programs, and
+the other selects the engine of a path not ported).
 """
 
 from __future__ import annotations
@@ -113,7 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "baselines (dense layout)")
     p.add_argument("--num-bases", type=int, default=4, help="R-GCN basis count")
     p.add_argument("--aggr", default="mean", choices=["mean", "sum", "relmean"],
-                   help="R-GCN aggregation (relmean: dense layout only)")
+                   help="R-GCN aggregation (relmean: not with --flat-aggregate "
+                        "pallas)")
     p.add_argument("--n-devices", type=int, default=0,
                    help="data-parallel devices (0 or 1: one device)")
     p.add_argument("--ep-local-aggregate", default="segment",
@@ -147,14 +149,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-mode", default="auto",
                    choices=["auto", "flat", "dense"],
                    help="graph batch layout: 'dense' = per-graph node slots, "
-                        "device-resident; 'flat' = disjoint edge list (needs "
-                        "--flat-aggregate pallas here). auto: dense")
+                        "device-resident; 'flat' = disjoint edge list. auto: "
+                        "dense")
     p.add_argument("--flat-aggregate", default="auto",
                    choices=["auto", "segment", "blocked", "pallas"],
-                   help="flat-layout R-GCN engine: 'pallas' = the fused "
-                        "aggregate kernels (CUDA here), forces batch-mode flat; "
-                        "'segment' and auto name no engine (blocked and the "
-                        "segment engine itself are not ported)")
+                   help="flat-layout R-GCN engine: 'blocked' = one-hot block "
+                        "products over dst/src-blocked plans, 'pallas' = the "
+                        "fused aggregate kernels (CUDA here), each forcing "
+                        "batch-mode flat; 'segment' and auto = the segment "
+                        "engine (gathers and index_add) under --batch-mode flat")
     p.add_argument("--dense-strategy", default="auto",
                    choices=["auto", "edge", "adjacency"],
                    help="dense-layout aggregation: 'edge' = per-edge gathers "
@@ -187,9 +190,6 @@ def unported_flags(args) -> list:
         (args.parallel == "ep", "--parallel ep"),
         (args.n_devices > 1, f"--n-devices {args.n_devices}"),
         (args.visualize, "--visualize (it draws with matplotlib)"),
-        (args.flat_aggregate == "blocked", "--flat-aggregate blocked"),
-        (args.batch_mode == "flat" and args.flat_aggregate in ("auto", "segment"),
-         "--batch-mode flat without --flat-aggregate pallas (the segment engine)"),
     ]
     return [flag for hit, flag in checks if hit]
 
@@ -339,7 +339,10 @@ def build_model(args, split, n_features=0, train_graphs=None):
                          multiply_by=multiply_by, aggr=args.aggr,
                          dense_strategy=args.dense_strategy,
                          compute_dtype=(None if args.compute_dtype == "float32"
-                                        else args.compute_dtype))
+                                        else args.compute_dtype),
+                         conv_strategy=args.conv_strategy,
+                         flat_aggregate=("segment" if args.flat_aggregate == "auto"
+                                         else args.flat_aggregate))
         model = IGMC(cfg, gen)
     elif args.model == "gnn":
         model = GNN(GNNConfig(num_features=num_features,
@@ -392,9 +395,10 @@ def choose_layouts(args, train_graphs):
     printing its `batch mode: ...` and `dense layout: ... (auto)` lines and
     exiting as it does on --dense-chunk, --dense-layout bipartite with
     dynamic data, --dense-strategy adjacency or a model other than igmc,
-    and --flat-aggregate pallas with a model other than igmc. Dynamic data
-    and the other families get the unified layout."""
-    flat_aggregate = "pallas" if args.flat_aggregate == "pallas" else None
+    and --flat-aggregate blocked or pallas with a model other than igmc.
+    Dynamic data and the other families get the unified layout."""
+    flat_aggregate = (None if args.flat_aggregate in ("auto", "segment")
+                      else args.flat_aggregate)
     if flat_aggregate is not None and args.model != "igmc":
         raise SystemExit("--flat-aggregate blocked/pallas applies to the "
                          "R-GCN trunk; use --model igmc")

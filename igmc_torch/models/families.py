@@ -1,9 +1,8 @@
-"""The paper's baseline families on the dense slot layout: GNN, DGCNN and
-DGCNN_RS.
+"""The paper's baseline families on the flat and dense slot layouts: GNN,
+DGCNN and DGCNN_RS.
 
 Port of igmc_tpu/models/igmc.py's GNNConfig / gnn_init / gnn_forward and
-DGCNNConfig / dgcnn_init / dgcnn_forward (their dense branches) and
-sortpool_k_from_dataset:
+DGCNNConfig / dgcnn_init / dgcnn_forward and sortpool_k_from_dataset:
 
   * GNN: a GCN trunk (GCNConv layers of `latent_dim`, tanh), the states of
     every layer concatenated and summed over the graph's node rows, then
@@ -14,14 +13,19 @@ sortpool_k_from_dataset:
     linear map of each pooled row, relu, MaxPool1d(2, 2); Conv1d(C1, C2,
     5), relu, flattened; relu(lin1), dropout, lin2.
 
+A flat GraphBatch runs the segment engine (models/rgcn.py gcn_apply, and
+rgcn_apply with conv_strategy "auto" for DGCNN_RS), the sum pool as
+masked_segment_sum over node2graph and SortPooling as global_sort_pool; a
+DenseBatch runs the dense layers, the sum over node slots and
+dense_sort_pool.
+
 Parameter names are the PyTorch reference's (`convs.{i}.{weight,bias}` for
 GCN layers, `convs.{i}.{basis,att,root,bias}` for R-GCN layers,
 `conv1d_params1` / `conv1d_params2` as torch.nn.Conv1d, `lin1`, `lin2`).
 Training noise is IGMC's (draw_noise): hash dropout of the packed edge ids
-or injected (forward, reverse) keep masks, and lin1's feature_keep. The
-families have no compute dtype, side features or multiply_by, as in the
-JAX package. Their flat forms need the segment engine, which is not
-ported: a flat GraphBatch raises.
+or injected keep masks ([E] flat; (forward, reverse) [B, E] dense), and
+lin1's feature_keep. The families have no compute dtype, side features or
+multiply_by, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from torch import nn
 
 from ..batching.dense import DenseBatch
 from ..ops.dropout import feature_dropout
-from ..ops.sort_pool import dense_sort_pool
-from .igmc import FEATURE_DROPOUT, HIDDEN, _linear, dense_edge_masks, node_onehot
-from .rgcn import (GCNConv, RGCNConv, dense_plan, gcn_dense_layer, gcn_dense_plan,
-                   rgcn_dense_layer, uniform_)
+from ..ops.segment import masked_segment_sum
+from ..ops.sort_pool import dense_sort_pool, global_sort_pool
+from .igmc import (FEATURE_DROPOUT, HIDDEN, _linear, dense_edge_masks, flat_edge_mask,
+                   node_onehot)
+from .rgcn import (GCNConv, RGCNConv, dense_plan, gcn_apply, gcn_dense_layer,
+                   gcn_dense_plan, rgcn_apply, rgcn_dense_layer, uniform_)
 
 
 @dataclass(frozen=True)
@@ -98,12 +104,8 @@ def _conv1d(in_ch: int, out_ch: int, kernel: int, stride: int,
     return conv
 
 
-def _require_dense(batch, family: str) -> DenseBatch:
-    if not isinstance(batch, DenseBatch):
-        raise NotImplementedError(
-            f"{family} on the flat layout needs the segment engine, which is "
-            f"not ported: use the dense layout (batch_mode='dense')")
-    if batch.rel_caps is not None:
+def _check_batch(batch, family: str):
+    if isinstance(batch, DenseBatch) and batch.rel_caps is not None:
         raise NotImplementedError(f"{family} on the relation-slotted layout")
     return batch
 
@@ -118,19 +120,27 @@ class _Family(nn.Module):
                              f".eval() to evaluate")
         return noise if self.training else (None, None)
 
-    def trunk(self, batch: DenseBatch, edge_noise=None) -> torch.Tensor:
-        """The trunk's layer states, concatenated: [B, n, sum(latent)]
-        (`edge_noise` as forward's, read in training mode only)."""
+    def trunk(self, batch, edge_noise=None) -> torch.Tensor:
+        """The trunk's layer states, concatenated: [N, sum(latent)] of a
+        flat batch, [B, n, sum(latent)] of a dense one (`edge_noise` as
+        forward's, read in training mode only)."""
         return self._gcn_states(batch, edge_noise)
 
-    def _gcn_states(self, batch: DenseBatch, edge_noise) -> torch.Tensor:
-        mask_f, mask_r = dense_edge_masks(batch, edge_noise, self.cfg, self.training)
-        plan = gcn_dense_plan(batch.edge_src, batch.edge_dst, mask_f, mask_r,
-                              batch.node_mask)
+    def _gcn_states(self, batch, edge_noise) -> torch.Tensor:
         x = node_onehot(batch, self.cfg.num_features)
+        if isinstance(batch, DenseBatch):
+            mask_f, mask_r = dense_edge_masks(batch, edge_noise, self.cfg,
+                                              self.training)
+            plan = gcn_dense_plan(batch.edge_src, batch.edge_dst, mask_f, mask_r,
+                                  batch.node_mask)
+            layer = lambda conv, h: gcn_dense_layer(conv, h, plan)
+        else:
+            emask = flat_edge_mask(batch, edge_noise, self.cfg, self.training)
+            layer = lambda conv, h: gcn_apply(conv, h, batch.edge_src, batch.edge_dst,
+                                              emask, batch.node_mask, h.shape[0])
         states = []
         for conv in self.convs:
-            x = torch.tanh(gcn_dense_layer(conv, x, plan))
+            x = torch.tanh(layer(conv, x))
             states.append(x)
         return torch.cat(states, dim=-1)
 
@@ -158,10 +168,14 @@ class GNN(_Family):
     def forward(self, batch, noise=None) -> torch.Tensor:
         """Predicted rating per graph, [B] (log-probabilities [B, classes]
         when not regression)."""
-        batch = _require_dense(batch, "GNN")
+        batch = _check_batch(batch, "GNN")
         edge_noise, feature_keep = self._noise(noise)
         states = self.trunk(batch, edge_noise)
-        pooled = (states * batch.node_mask[..., None].float()).sum(dim=1)
+        if isinstance(batch, DenseBatch):
+            pooled = (states * batch.node_mask[..., None].float()).sum(dim=1)
+        else:
+            pooled = masked_segment_sum(states, batch.node2graph, batch.node_mask,
+                                        batch.num_graphs)
         return self._head(pooled, feature_keep)
 
 
@@ -187,19 +201,26 @@ class DGCNN(_Family):
         self.lin2 = _linear(HIDDEN, 1 if cfg.regression else cfg.num_classes,
                             generator)
 
-    def trunk(self, batch: DenseBatch, edge_noise=None) -> torch.Tensor:
-        """The trunk's layer states, concatenated: [B, n, sum(latent)];
-        SortPool ranks the rows by the last channel."""
+    def trunk(self, batch, edge_noise=None) -> torch.Tensor:
+        """The trunk's layer states, concatenated: [N, sum(latent)] of a
+        flat batch, [B, n, sum(latent)] of a dense one; SortPool ranks the
+        rows by the last channel."""
         if not self.cfg.relational:
             return self._gcn_states(batch, edge_noise)
         cfg = self.cfg
-        mask_f, mask_r = dense_edge_masks(batch, edge_noise, cfg, self.training)
-        plan = dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type, mask_f,
-                          mask_r, batch.node_slot, cfg.num_relations, "mean")
         x = node_onehot(batch, cfg.num_features)
+        if isinstance(batch, DenseBatch):
+            mask_f, mask_r = dense_edge_masks(batch, edge_noise, cfg, self.training)
+            plan = dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type, mask_f,
+                              mask_r, batch.node_slot, cfg.num_relations, "mean")
+            layer = lambda conv, h: rgcn_dense_layer(conv, h, plan)
+        else:
+            emask = flat_edge_mask(batch, edge_noise, cfg, self.training)
+            layer = lambda conv, h: rgcn_apply(conv, h, batch.edge_src, batch.edge_dst,
+                                               batch.edge_type, emask, h.shape[0])
         states = []
         for conv in self.convs:
-            x = torch.tanh(rgcn_dense_layer(conv, x, plan))
+            x = torch.tanh(layer(conv, x))
             states.append(x)
         return torch.cat(states, dim=-1)
 
@@ -207,11 +228,16 @@ class DGCNN(_Family):
         """Predicted rating per graph, [B] (log-probabilities [B, classes]
         when not regression)."""
         cfg = self.cfg
-        batch = _require_dense(batch, "DGCNN_RS" if cfg.relational else "DGCNN")
+        batch = _check_batch(batch, "DGCNN_RS" if cfg.relational else "DGCNN")
         edge_noise, feature_keep = self._noise(noise)
         states = self.trunk(batch, edge_noise)
         B, D = batch.num_graphs, cfg.total_latent_dim
-        pooled = dense_sort_pool(states, batch.node_mask, cfg.k).reshape(B, cfg.k, D)
+        if isinstance(batch, DenseBatch):
+            pooled = dense_sort_pool(states, batch.node_mask, cfg.k)
+        else:
+            pooled = global_sort_pool(states, batch.node2graph, batch.node_mask, B,
+                                      cfg.k)
+        pooled = pooled.reshape(B, cfg.k, D)
         # Conv1d(1, C1, D, stride D): the same linear map of each pooled row
         w1 = self.conv1d_params1.weight[:, 0, :]                    # [C1, D]
         h = (pooled @ w1.t()).transpose(1, 2) + self.conv1d_params1.bias[:, None]

@@ -1,16 +1,22 @@
 """The IGMC model over flat padded graph batches and dense slot batches.
 
 Port of igmc_tpu/models/igmc.py (IGMCConfig, igmc_init, igmc_forward's
-flat branch with use_pallas and its dense branch _igmc_forward_dense,
-chunk_dense_batch, igmc_forward_dense_chunked, arr_regularizer): one-hot
-hop labels, 4 R-GCN layers with tanh, the states of the target user and
-target item from every layer, then relu(lin1), feature dropout 0.5 in
-training, and lin2, times `multiply_by`.
+flat branches: segment, _igmc_forward_blocked and use_pallas, its dense
+branch _igmc_forward_dense, chunk_dense_batch, igmc_forward_dense_chunked,
+arr_regularizer): one-hot hop labels, 4 R-GCN layers with tanh, the states
+of the target user and target item from every layer, then relu(lin1),
+feature dropout 0.5 in training, and lin2, times `multiply_by`.
 
-  * Flat GraphBatch: every layer's aggregate runs through the fused
-    kernels (kernels/rgcn_aggregate.py); aggr mean or sum. They compute in
-    float32 whatever `compute_dtype` says, as the JAX package's fused
-    aggregate does.
+  * Flat GraphBatch: `flat_aggregate` names the engine of every layer's
+    aggregate. "segment" (the default, as in the JAX package): rgcn_apply
+    (models/rgcn.py) with `conv_strategy`, aggr mean, sum or relmean,
+    `compute_dtype` float32 or bfloat16. "blocked": the scatter-free
+    blocked engine (ops/blocked.py) over the batch's `blocked` plans
+    (BatchLoader(flat_aggregate="blocked")), aggr mean, sum or relmean,
+    bfloat16 in its forward messages. "pallas": the fused kernels
+    (kernels/rgcn_aggregate.py) over the batch's aligned plans, aggr mean
+    or sum, in float32 whatever `compute_dtype` says, as the JAX package's
+    fused aggregate.
   * DenseBatch (batching/dense.py): the targets are slot rows 0 and 1
     (unified) or 0 and num_u (bipartite). A relation-slotted batch
     (`rel_caps`) runs the relslot strategy, any other the edge strategy
@@ -27,11 +33,12 @@ rows are concatenated after the target states, so lin1 takes
 
 In training mode the forward takes its noise from the caller,
 (edge_noise, feature_keep) from `draw_noise`: edge_noise is a seed for
-the hash edge dropout (flat: keyed on the plans' ukey stream, folded into
-both plans' masks; dense: keyed on the batch's packed edge ids), and
-feature_keep is lin1's dropout mask. A dense forward also takes
-edge_noise as a pair of [B, E] keep masks (forward, reverse), so that
-tests can feed it the JAX package's masks.
+the hash edge dropout (segment and dense: keyed on the batch's packed edge
+ids; blocked: on the plans' pair and ukey streams; pallas: on the plans'
+ukey stream, folded into both plans' masks), and feature_keep is lin1's
+dropout mask. A segment forward also takes edge_noise as an [E] keep
+mask, and a dense one as a pair of [B, E] keep masks (forward, reverse),
+so that tests can feed them the JAX package's masks.
 """
 
 from __future__ import annotations
@@ -47,16 +54,20 @@ from torch import nn
 from ..batching.batch import GraphBatch
 from ..batching.dense import DenseBatch
 from ..kernels.rgcn_aggregate import PLAN_ROWS, _dst_global, rgcn_aggregate
-from ..ops.dropout import edge_dropout_dense, feature_dropout, hash_edge_keep
-from .rgcn import (RGCNConv, build_dense_adj, dense_adj_degrees, dense_plan,
-                   relslot_plan, resolve_compute_dtype, rgcn_dense_adj_apply,
-                   rgcn_dense_layer, uniform_)
+from ..ops.blocked import (blocked_degree, blocked_rel_counts,
+                           blocked_rgcn_aggregate, dropout_masks, relmean_weights)
+from ..ops.dropout import (edge_dropout, edge_dropout_dense, feature_dropout,
+                           flat_edge_keep, hash_edge_keep)
+from .rgcn import (AGGRS, RGCNConv, build_dense_adj, dense_adj_degrees, dense_plan,
+                   relslot_plan, resolve_compute_dtype, rgcn_apply,
+                   rgcn_dense_adj_apply, rgcn_dense_layer, uniform_)
 
 HIDDEN = 128           # lin1's width
 FEATURE_DROPOUT = 0.5  # dropout after relu(lin1) in training
 # auto = edge; edge-k = edge (the JAX package's per-basis scatters compute
 # the edge form's function, so the port runs the edge code for it)
 DENSE_STRATEGIES = ("auto", "edge", "edge-k", "adjacency")
+FLAT_AGGREGATES = ("segment", "blocked", "pallas")
 
 
 @dataclass(frozen=True)
@@ -70,9 +81,11 @@ class IGMCConfig:
     side_features: bool = False
     n_side_features: int = 0               # du + dv when side_features
     multiply_by: float = 1.0
-    aggr: str = "mean"                     # mean/sum (flat), mean/sum/relmean (dense)
+    conv_strategy: str = "auto"            # segment engine: models/rgcn.py CONV_STRATEGIES
+    aggr: str = "mean"                     # mean/sum/relmean (pallas: mean/sum)
     dense_strategy: str = "auto"           # DENSE_STRATEGIES
-    compute_dtype: Optional[str] = None    # None (float32) or "bfloat16": dense trunk
+    compute_dtype: Optional[str] = None    # None (float32) or "bfloat16"
+    flat_aggregate: str = "segment"        # flat engine: FLAT_AGGREGATES
 
 
 def _linear(in_features: int, out_features: int,
@@ -129,41 +142,111 @@ class IGMC(nn.Module):
             h = feature_dropout(h, feature_keep, FEATURE_DROPOUT)
         return self.lin2(h)[:, 0] * self.cfg.multiply_by
 
-    def _flat_states(self, batch: GraphBatch, edge_seed) -> torch.Tensor:
+    def _flat_states(self, batch: GraphBatch, edge_noise) -> torch.Tensor:
         """[B, 2 * sum(latent)]: the target user's and target item's states
-        of every layer, through the fused aggregate, in float32 whatever
-        cfg.compute_dtype says (as the JAX package's fused aggregate)."""
+        of every layer, through the engine cfg.flat_aggregate names."""
+        engine = self.cfg.flat_aggregate
+        if engine not in FLAT_AGGREGATES:
+            raise ValueError(f"unknown flat_aggregate {engine!r} "
+                             f"({'|'.join(FLAT_AGGREGATES)})")
+        states = {"segment": self._segment_states, "blocked": self._blocked_states,
+                  "pallas": self._fused_states}[engine](batch, edge_noise)
+        concat_states = torch.cat(states, dim=1)        # [N, sum(latent)]
+        # a padding graph's targets may lie one past the last row of a full
+        # device-assembled batch; the JAX package's gather clamps them
+        last = concat_states.shape[0] - 1
+        return torch.cat([concat_states[batch.target_u.long().clamp_max(last)],
+                          concat_states[batch.target_v.long().clamp_max(last)]], dim=1)
+
+    def _segment_states(self, batch: GraphBatch, edge_noise) -> List[torch.Tensor]:
+        """Every layer's node states through the segment engine (rgcn_apply)."""
+        cfg = self.cfg
+        emask = flat_edge_mask(batch, edge_noise, cfg, self.training)
+        N = batch.node_label.shape[0]
+        x = node_onehot(batch, cfg.num_features)
+        states = []
+        for conv in self.convs:
+            x = torch.tanh(rgcn_apply(conv, x, batch.edge_src, batch.edge_dst,
+                                      batch.edge_type, emask, N, cfg.conv_strategy,
+                                      cfg.aggr, cfg.compute_dtype))
+            states.append(x)
+        return states
+
+    def _blocked_states(self, batch: GraphBatch, edge_seed) -> List[torch.Tensor]:
+        """Every layer's node states through the blocked engine, over the
+        batch's dst- and src-major plans; dropout is the hash of the plans'
+        pair (force_undirected) or ukey streams, as in the JAX package."""
+        cfg = self.cfg
+        blocked = batch.blocked
+        if blocked is None:
+            raise ValueError("flat_aggregate='blocked' needs dst/src-blocked plans "
+                             "on the batch (BatchLoader(flat_aggregate='blocked') "
+                             "or ops.plan_blocked_edges)")
+        if cfg.aggr not in AGGRS:
+            raise NotImplementedError(f"flat_aggregate='blocked': unknown aggr "
+                                      f"{cfg.aggr}")
+        N, rows = batch.node_label.shape[0], blocked.rows
+        masks, inv_deg = (blocked.fwd.mask, blocked.bwd.mask), None
+        if self.training and cfg.adj_dropout > 0:
+            masks = dropout_masks(blocked, cfg.adj_dropout, cfg.force_undirected,
+                                  edge_seed)
+        if cfg.aggr == "mean":
+            deg = blocked_degree(blocked.fwd, masks[0], rows, N)
+            inv_deg = (1.0 / deg.clamp_min(1.0))[:, None]
+        elif cfg.aggr == "relmean":
+            # 1/c_{i,r} folded into both plans' per-edge weights, after dropout
+            R = cfg.num_relations
+            cnt = blocked_rel_counts(blocked.fwd, masks[0], R, rows, N)
+            cinv = (1.0 / cnt.clamp_min(1.0)).reshape(-1)
+            masks = (relmean_weights(cinv, blocked.fwd, masks[0], R, rows, True),
+                     relmean_weights(cinv, blocked.bwd, masks[1], R, rows, False))
+        cd = resolve_compute_dtype(cfg.compute_dtype)
+        return self._summed_layers(
+            batch, lambda conv, x: blocked_rgcn_aggregate(x, conv.att, conv.basis,
+                                                          blocked, masks, cd),
+            inv_deg)
+
+    def _fused_states(self, batch: GraphBatch, edge_seed) -> List[torch.Tensor]:
+        """Every layer's node states through the fused aggregate, in float32
+        whatever cfg.compute_dtype says (as the JAX package's fused
+        aggregate)."""
         cfg = self.cfg
         if cfg.aggr not in ("mean", "sum"):
             raise NotImplementedError(f"aggregate kernel + aggr={cfg.aggr}")
         aligned, aligned_t = batch.aligned, batch.aligned_t
         if aligned is None:
-            raise ValueError("the IGMC forward needs the batch's aligned edge "
-                             "plan (BatchLoader attaches it)")
+            raise ValueError("flat_aggregate='pallas' needs the batch's aligned "
+                             "edge plan (BatchLoader(flat_aggregate='pallas') "
+                             "attaches it)")
         if self.training and cfg.adj_dropout > 0:
             aligned = _drop_edges(aligned, edge_seed, cfg)
             if aligned_t is not None:
                 aligned_t = _drop_edges(aligned_t, edge_seed, cfg)
         N = batch.node_label.shape[0]
-        x = node_onehot(batch, cfg.num_features)
-
+        inv_deg = None
         if cfg.aggr == "mean":
             amask = aligned[3]       # the degree counts the kept edges only
             deg = torch.zeros(N, dtype=amask.dtype, device=amask.device)
             deg.index_add_(0, _dst_global(aligned, PLAN_ROWS), amask)
             inv_deg = (1.0 / deg.clamp_min(1.0))[:, None]
+        return self._summed_layers(
+            batch, lambda conv, x: rgcn_aggregate(x, conv.att, conv.basis, aligned,
+                                                  PLAN_ROWS, N, aligned_t),
+            inv_deg)
 
+    def _summed_layers(self, batch: GraphBatch, aggregate, inv_deg) -> List[torch.Tensor]:
+        """Every layer's node states when `aggregate(conv, x)` gives the
+        summed messages into each row: tanh(agg (* inv_deg for mean) +
+        x @ root + bias)."""
+        x = node_onehot(batch, self.cfg.num_features)
         states = []
         for conv in self.convs:
-            agg = rgcn_aggregate(x, conv.att, conv.basis, aligned,
-                                 PLAN_ROWS, N, aligned_t)
-            if cfg.aggr == "mean":
+            agg = aggregate(conv, x)
+            if inv_deg is not None:
                 agg = agg * inv_deg
             x = torch.tanh(agg + x @ conv.root + conv.bias)
             states.append(x)
-        concat_states = torch.cat(states, dim=1)        # [N, sum(latent)]
-        return torch.cat([concat_states[batch.target_u.long()],
-                          concat_states[batch.target_v.long()]], dim=1)
+        return states
 
     def _dense_states(self, batch: DenseBatch, edge_noise) -> torch.Tensor:
         """[B, 2 * sum(latent)]: the target rows' states of every layer of
@@ -229,6 +312,25 @@ def dense_edge_masks(batch: DenseBatch, edge_noise, cfg, training: bool):
                 batch.edge_mask, batch.edge_id, edge_noise, cfg.adj_dropout,
                 cfg.force_undirected)
     return mask_f, mask_r
+
+
+def flat_edge_mask(batch: GraphBatch, edge_noise, cfg, training: bool):
+    """[E] kept edges of a flat batch for the segment engine: the edge mask
+    in eval mode or without dropout; in training, edge_dropout of the hash
+    keep decisions of the batch's packed edge ids seeded by `edge_noise`
+    (flat_edge_keep), or of `edge_noise` as an injected [E] keep mask.
+    `cfg` carries adj_dropout and force_undirected."""
+    if not training or cfg.adj_dropout == 0:
+        return batch.edge_mask
+    if torch.is_tensor(edge_noise):                 # injected keep mask
+        keep = edge_noise
+    elif batch.edge_id is None:
+        raise ValueError("flat edge dropout needs the batch's packed edge ids "
+                         "(BatchLoader and assemble_batch attach them)")
+    else:
+        keep = flat_edge_keep(edge_noise, batch.edge_id, batch.edge_src,
+                              batch.edge_dst, cfg.adj_dropout, cfg.force_undirected)
+    return edge_dropout(batch.edge_mask, batch.edge_canon, keep, cfg.force_undirected)
 
 
 def node_onehot(batch, num_features: int) -> torch.Tensor:

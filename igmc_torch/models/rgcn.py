@@ -7,9 +7,11 @@ computes, as PyG 1.4.2's RGCNConv does,
     W_r  = sum_b att[r, b] * basis[b]                 (basis decomposition)
     out_i = aggr_{e: dst_e = i} x[src_e] @ W_{type_e} + x_i @ root + bias
 
-with the aggregate done by kernels/rgcn_aggregate.py on the flat layout
-(models/igmc.py wires it), or by the dense layers below on the dense slot
-layout (batching/dense.py). Parameter names and layouts equal the JAX
+with the aggregate done on the flat layout by the segment engine
+(rgcn_apply below: gathers, one matmul per strategy, index_add), the
+blocked engine (ops/blocked.py) or the fused kernels
+(kernels/rgcn_aggregate.py), as models/igmc.py selects them, or by the
+dense layers below on the dense slot layout (batching/dense.py). Parameter names and layouts equal the JAX
 package's and the PyTorch reference's state_dict
 (`convs.{i}.{basis,att,root,bias}`).
 
@@ -25,6 +27,17 @@ sum_e mask_e * x[src_e] @ W_{type_e}, the one-hot form's sum, with O(E)
 gathers in place of O(E * n) products. The adjacency strategy builds the
 per-relation [B, R, n, n] adjacency once per forward and contracts it with
 the per-node transforms in every layer, as the JAX package does.
+
+rgcn_apply and gcn_apply are the JAX package's flat layers over a padded
+edge list. rgcn_apply's relation transform has three strategies, chosen
+by conv_strategy: "dispatch" (x @ W_r for every node and relation, an
+[R, N, Cout] table, one gather per edge at type * N + src), "basis-mix"
+(per edge, att[type] outer x[src] times the stacked bases: R-independent,
+for many relations) and "per-edge" (per edge, x[src] @ W[type]); "auto"
+takes dispatch when E >= N * R // 4, else basis-mix. Under bfloat16 the
+transform rounds where the JAX package's does (x, W or att and basis, each
+edge's att * x product, the messages) and the aggregation and x @ root +
+bias stay float32; the sums run in float32 over bfloat16-rounded values.
 
 GCNConv and the GCN dense layer (gcn_dense_plan, gcn_dense_layer,
 gcn_dense_apply) are the trunk of the GNN and DGCNN families
@@ -55,6 +68,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..ops.segment import masked_segment_mean, segment_sum
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
@@ -345,6 +360,84 @@ def rgcn_dense_adj_apply(conv: RGCNConv, x, adj_f, adj_r=None, aggr: str = "mean
     if aggr == "mean":
         agg = agg * inv_deg[..., None]
     return agg + x @ conv.root + conv.bias
+
+
+CONV_STRATEGIES = ("auto", "dispatch", "basis-mix", "per-edge")
+
+
+def conv_strategy_for(strategy: str, num_edges: int, num_nodes: int,
+                      num_relations: int) -> str:
+    """The strategy rgcn_apply runs: `strategy`, or for "auto" dispatch when
+    E >= N * R // 4 (the [R, N, Cout] table costs N * R transforms, the
+    basis mix E * B), else basis-mix."""
+    if strategy not in CONV_STRATEGIES:
+        raise ValueError(f"unknown conv_strategy {strategy!r} "
+                         f"({'|'.join(CONV_STRATEGIES)})")
+    if strategy == "auto":
+        return ("dispatch" if num_edges >= num_nodes * num_relations // 4
+                else "basis-mix")
+    return strategy
+
+
+def rgcn_apply(conv: RGCNConv, x, edge_src, edge_dst, edge_type, edge_mask,
+               num_nodes: int, strategy: str = "auto", aggr: str = "mean",
+               compute_dtype=None) -> torch.Tensor:
+    """The R-GCN layer over a padded flat edge list (the segment engine):
+    x [N, Cin] float32, edges [E] (batch rows), edge_mask [E] the kept
+    edges; [N, Cout] float32 = aggr over incoming messages + x @ root +
+    bias. aggr 'mean' (over all incoming edges), 'sum' or 'relmean' (mean
+    within each (dst, relation), summed over relations); `strategy` as in
+    conv_strategy_for; compute_dtype None (float32) or bfloat16. The
+    function of the JAX package's rgcn_apply."""
+    if aggr not in AGGRS:
+        raise ValueError(f"unknown aggr {aggr!r} (mean|sum|relmean)")
+    cd = resolve_compute_dtype(compute_dtype)
+    nb, Cin, Cout = conv.basis.shape
+    R = conv.att.shape[0]
+    N = num_nodes
+    src, dst, typ = edge_src.long(), edge_dst.long(), edge_type.long()
+    xc = _round(x, cd)
+    strategy = conv_strategy_for(strategy, src.shape[0], N, R)
+    if strategy != "basis-mix":
+        w = _round(conv.relation_weights(), cd)              # [R, Cin, Cout]
+    if strategy == "dispatch":
+        h = _round(torch.einsum("ni,rio->rno", xc, w), cd)   # [R, N, Cout]
+        msg = h.reshape(R * N, Cout).index_select(0, typ * N + src)
+    elif strategy == "basis-mix":
+        xs = xc.index_select(0, src)                         # [E, Cin]
+        ae = _round(conv.att, cd).index_select(0, typ)       # [E, nb]
+        z = _round(ae[:, :, None] * xs[:, None, :], cd).reshape(-1, nb * Cin)
+        msg = _round(z @ _round(conv.basis, cd).reshape(nb * Cin, Cout), cd)
+    else:                                                    # per-edge
+        xs = xc.index_select(0, src)
+        msg = _round(torch.bmm(xs[:, None, :], w.index_select(0, typ))[:, 0], cd)
+    m = edge_mask.float()
+    if aggr == "mean":
+        agg = masked_segment_mean(msg, dst, edge_mask, N)
+    elif aggr == "sum":
+        agg = segment_sum(msg * m[:, None], dst, N)
+    else:                                                    # relmean
+        seg = dst * R + typ
+        per_rel = (segment_sum(msg * m[:, None], seg, N * R)
+                   / segment_sum(m, seg, N * R).clamp_min(1.0)[:, None])
+        agg = per_rel.reshape(N, R, Cout).sum(1)
+    return agg + x @ conv.root + conv.bias
+
+
+def gcn_apply(conv: "GCNConv", x, edge_src, edge_dst, edge_mask, node_mask,
+              num_nodes: int) -> torch.Tensor:
+    """The GCN layer over a padded flat edge list: self-loops and the
+    symmetric D^-1/2 (A + I) D^-1/2 norm, the degree counting the kept
+    edges into a node and its self-loop if the node is real (a padding
+    node's 0 gives 0). The function of the JAX package's gcn_apply."""
+    h = x @ conv.weight
+    src, dst = edge_src.long(), edge_dst.long()
+    em, nm = edge_mask.to(h.dtype), node_mask.to(h.dtype)
+    deg = segment_sum(em, dst, num_nodes) + nm
+    dinv = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), torch.zeros_like(deg))
+    coef = dinv[src] * dinv[dst] * em
+    agg = segment_sum(h.index_select(0, src) * coef[:, None], dst, num_nodes)
+    return agg + h * (dinv * dinv * nm)[:, None] + conv.bias
 
 
 class GCNConv(nn.Module):

@@ -1,14 +1,24 @@
 """Dropout ops: the stateless hash edge dropout and feature dropout.
 
 Port of igmc_tpu/parallel/ep.py:hash_edge_keep and
-igmc_tpu/ops/dropout.py (edge_dropout_dense, feature_dropout). Edge
-dropout keeps an edge when a murmur-style hash of (seed, edge key) clears
-the drop probability, so the keep decision is recomputed on the device per
-step: from the plans' ukey streams on the fused aggregate path, from the
-packed edge ids on the dense path. Both directed copies of an undirected
-pair can share one key (force_undirected). The hash equals the JAX
-package's bit for bit; the JAX package's dense dropout draws jax.random
-masks instead, which torch cannot reproduce.
+igmc_tpu/ops/dropout.py (edge_dropout, edge_dropout_dense,
+feature_dropout). Edge dropout keeps an edge when a murmur-style hash of
+(seed, edge key) clears the drop probability, so the keep decision is
+recomputed on the device per step: from the plans' ukey streams on the
+fused aggregate path, from the plans' pair and ukey streams on the blocked
+engine (both as the JAX package keys them), from the packed edge ids on
+the dense path and on the flat segment engine. Both directed copies of an
+undirected pair can share one key (force_undirected). The hash equals the
+JAX package's bit for bit; the JAX package's segment and dense dropout
+draw jax.random masks instead, which torch cannot reproduce.
+
+The packed edge id is the key of the segment and dense engines: edge i of
+a static dataset's packed tables (or, for a dynamic dataset, graph g's
+edge j as g * DYNAMIC_EDGE_STRIDE + j) is keyed 2i forward (user to item)
+and 2i + 1 reverse, or i in both directions with force_undirected. A
+batch assembled on the device and the same graphs collated on the host
+carry the same ids, so they drop the same edges for one seed, on the card
+and on the CPU alike, and so do a flat and a dense batch of those graphs.
 
 torch has no usable uint32 arithmetic: the hash runs in int64, masked to
 its low 32 bits after every multiply and add and before every right
@@ -54,6 +64,31 @@ def edge_dropout_dense(edge_mask: torch.Tensor, edge_id: torch.Tensor, seed: int
         return m, m
     return (edge_mask & hash_edge_keep(seed, 2 * edge_id, p),
             edge_mask & hash_edge_keep(seed, 2 * edge_id + 1, p))
+
+
+def flat_edge_keep(seed: int, edge_id: torch.Tensor, edge_src: torch.Tensor,
+                   edge_dst: torch.Tensor, p: float,
+                   force_undirected: bool) -> torch.Tensor:
+    """Keep decision [E] of each directed edge of a flat batch, keyed on its
+    packed edge id (GraphBatch.edge_id): 2 * id for a forward copy
+    (src < dst: user to item), 2 * id + 1 for a reverse one, as the dense
+    layout keys its two directions; id alone with force_undirected."""
+    keys = edge_id.long()
+    if not force_undirected:
+        keys = 2 * keys + (edge_src > edge_dst).long()
+    return hash_edge_keep(seed, keys, p)
+
+
+def edge_dropout(edge_mask: torch.Tensor, edge_canon: torch.Tensor,
+                 keep: torch.Tensor, force_undirected: bool) -> torch.Tensor:
+    """edge_mask AND the [E] keep decisions; with force_undirected each
+    edge takes its forward copy's decision (keep[edge_canon]), so both
+    copies of a pair drop together (dropout_adj(force_undirected=True)).
+    `keep` comes from flat_edge_keep or is injected (the JAX package's
+    jax.random.bernoulli mask)."""
+    if force_undirected:
+        keep = keep[edge_canon.long()]
+    return edge_mask & keep
 
 
 def feature_dropout(h: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:

@@ -20,20 +20,30 @@ ARR over its R-GCN layers), in two layouts:
     layout host-collated instead: BatchLoader(batch_mode="dense") extracts
     and collates unified slot batches on its prefetch threads, one step
     per batch, as the JAX package's dynamic dense path.
-  * flat (``batch_mode="flat"``, IGMC only): host-collated batches,
-    static or dynamic, through the fused aggregate kernels, the JAX
-    package's ``flat_aggregate="pallas"``; the plans are built on the
-    loader's prefetch threads.
+  * flat (``batch_mode="flat"``, every family): `flat_aggregate` names
+    the engine, as in the JAX package. None, "segment" or "auto": the
+    segment engine; packed datasets with superbatch > 1 run
+    device-resident (each step assembles its GraphBatch on the device from
+    a row of graph ids, batching/device_data.py assemble_batch; the epoch
+    is the JAX package's plan_gid_epoch of SeedSequence([seed, epoch])'s
+    permutation, one step per live row), dynamic datasets and
+    superbatch <= 1 host-collated through BatchLoader, one step per batch
+    (the JAX package scans a superbatch of them, padded to the ladder
+    maximum). "blocked" (IGMC): the blocked engine over host-built plans;
+    "pallas" (IGMC): the fused aggregate kernels over host-built plans;
+    the plans are built on the loader's prefetch threads. The loop sets
+    the IGMC copy's cfg.flat_aggregate to the engine it runs.
 
-The other flat engines (segment, blocked) and meshes are not ported yet and
-raise. Sums stay on the device across batches and steps, an epoch's graph
-ids and noise masks are uploaded at once (device-resident datasets), and
-each epoch's train loss and each RMSE cost one host sync.
+Meshes are not ported yet and raise. Sums stay on the device across
+batches and steps, an epoch's graph ids and noise masks are uploaded at
+once (device-resident datasets), and each epoch's train loss and each RMSE
+cost one host sync.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 import os
 import time
@@ -43,9 +53,11 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..batching.batch import GraphBatch
 from ..batching.dataset import BatchLoader
 from ..batching.dense import plan_bipartite_buckets, plan_dense_buckets
-from ..batching.device_data import DeviceDataset, assemble_dense, live_rows
+from ..batching.device_data import (DeviceDataset, assemble_batch, assemble_dense,
+                                   capacity_bound, live_rows, plan_gid_epoch)
 from ..device import resolve_device
 from ..models.igmc import IGMC, arr_regularizer, draw_noise, slice_noise
 from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
@@ -263,26 +275,12 @@ def plan_dense_epoch(buckets, batch_graphs: int, superbatch: int,
     max(superbatch, 1), short blocks padded with -1 and each bucket's last
     unit with all-(-1) rows. With an rng, each bucket's graphs are shuffled
     and the units permuted; without one the order is fixed (evaluation)."""
-    B = batch_graphs
-    K = superbatch if superbatch > 1 else 1
     units = []
     for bi, bucket in enumerate(buckets):
         order = bucket.indices
         if rng is not None:
             order = rng.permutation(order)
-        blocks = []
-        for s in range(0, len(order), B):
-            blk = order[s : s + B].astype(np.int32)
-            if len(blk) < B:
-                blk = np.concatenate([blk, np.full(B - len(blk), -1, np.int32)])
-            blocks.append(blk)
-        n_super = len(blocks) // K
-        for i in range(n_super):
-            units.append((bi, np.stack(blocks[i * K : (i + 1) * K])))
-        rem = blocks[n_super * K:]
-        if rem:
-            rem = rem + [np.full(B, -1, np.int32)] * (K - len(rem))
-            units.append((bi, np.stack(rem)))
+        units += [(bi, blk) for blk in plan_gid_epoch(order, batch_graphs, superbatch)]
     if rng is not None and len(units) > 1:
         units = [units[i] for i in rng.permutation(len(units))]
     return units
@@ -340,10 +338,52 @@ class DensePass:
             yield self.assemble(dd, bi, self.gids[i], rel_caps)
 
 
+@dataclass
+class FlatPass:
+    """One pass over a device-resident dataset on the flat layout: the live
+    gid rows of plan_gid_epoch in order as one [S, B] int64 tensor on the
+    device, and the pads every row's GraphBatch is assembled in. It has
+    DensePass's interface (one bucket), so dense_train_epoch,
+    dense_eval_rmse and dense_predict_all take it."""
+    node_pad: int
+    edge_pad: int
+    gids: torch.Tensor
+
+    @classmethod
+    def plan(cls, dataset, batch_graphs: int, superbatch: int, device,
+             order: Optional[np.ndarray] = None) -> "FlatPass":
+        """The pass over `dataset` (node_counts / edge_counts) in `order`
+        (default: dataset order), pads from capacity_bound."""
+        node_pad, edge_pad = capacity_bound(dataset.node_counts(),
+                                            dataset.edge_counts(), batch_graphs)
+        if order is None:
+            order = np.arange(len(dataset), dtype=np.int64)
+        rows = [np.zeros((0, batch_graphs), np.int32)]
+        rows += [blk[:live_rows(blk)]
+                 for blk in plan_gid_epoch(order, batch_graphs, superbatch)]
+        gids = torch.from_numpy(np.concatenate(rows).astype(np.int64))
+        return cls(node_pad, edge_pad, gids.to(device))
+
+    @property
+    def bucket_of(self) -> List[int]:
+        return [0] * self.gids.shape[0]
+
+    def assemble(self, dd: DeviceDataset, bucket: int, gids: torch.Tensor,
+                 rel_caps: Optional[tuple] = None) -> GraphBatch:
+        """The GraphBatch of graph ids `gids` (`bucket` and `rel_caps` are
+        DensePass's, unused)."""
+        return assemble_batch(dd, gids, self.node_pad, self.edge_pad)
+
+    def batches(self, dd: DeviceDataset, rel_caps: Optional[tuple] = None):
+        for gids in self.gids:
+            yield self.assemble(dd, 0, gids)
+
+
 def dense_train_epoch(step_fn: Callable, dd: DeviceDataset, epoch: DensePass,
                       generator: torch.Generator, dataset_size: int,
                       rel_caps: Optional[tuple] = None) -> float:
-    """One training pass, one make_dense_row_step per live row with noise
+    """One training pass over a DensePass or FlatPass, one
+    make_dense_row_step per live row with noise
     from `generator` (draw_noise, drawn for the whole pass first and
     uploaded at once); returns sum(loss * n) / dataset_size, one host
     sync."""
@@ -361,7 +401,7 @@ def dense_train_epoch(step_fn: Callable, dd: DeviceDataset, epoch: DensePass,
 
 def dense_eval_rmse(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
                     rel_caps: Optional[tuple] = None) -> float:
-    """RMSE over a dense pass; device-side sums, one host sync."""
+    """RMSE over a DensePass or FlatPass; device-side sums, one host sync."""
     sse = cnt = None
     for batch in epoch.batches(dd, rel_caps):
         s, c, _ = eval_fn(batch)
@@ -374,7 +414,7 @@ def dense_eval_rmse(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
 
 def dense_predict_all(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
                       rel_caps: Optional[tuple] = None) -> np.ndarray:
-    """Raw predictions in DATASET order from a dense pass, scattered back
+    """Raw predictions in DATASET order from a DensePass or FlatPass, scattered back
     through each row's graph ids on the device and fetched once. Padding
     graphs write to a spare slot past the end."""
     G = len(dd)
@@ -387,32 +427,40 @@ def dense_predict_all(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
 
 def _no_flat_engine(batch_mode: str, flat_aggregate):
     """flat_aggregate as the dense layout reads it: 'segment' and 'auto'
-    name no flat engine there, as in the JAX package. On the flat layout
-    they stay, and _check_layout refuses them (the segment engine is not
-    ported; None means the fused aggregate there)."""
+    name no flat engine there, as in the JAX package."""
     if batch_mode == "dense" and flat_aggregate in ("segment", "auto"):
         return None
     return flat_aggregate
 
 
-def _check_layout(batch_mode: str, flat_aggregate, what: str):
-    """Refuse an unknown batch_mode, and what is not ported: flat engines
-    other than the fused aggregate (which None means)."""
+def flat_engine(flat_aggregate) -> str:
+    """The flat layout's engine of a flat_aggregate argument: None,
+    'segment' and 'auto' name the segment engine, as in the JAX package;
+    'blocked' and 'pallas' themselves."""
+    if flat_aggregate in (None, "segment", "auto"):
+        return "segment"
+    if flat_aggregate in ("blocked", "pallas"):
+        return flat_aggregate
+    raise ValueError(f"unknown flat_aggregate {flat_aggregate!r} "
+                     f"(segment|auto|blocked|pallas)")
+
+
+def _check_layout(batch_mode: str, flat_aggregate) -> str:
+    """Refuse an unknown batch_mode or engine; returns the flat engine."""
     if batch_mode not in ("flat", "dense"):
         raise ValueError(f"unknown batch_mode {batch_mode!r} (flat|dense)")
-    if batch_mode == "flat" and flat_aggregate not in (None, "pallas"):
-        raise NotImplementedError(f"igmc_torch {what}: the flat layout runs the "
-                                  f"fused aggregate (flat_aggregate='pallas') "
-                                  f"only, not {flat_aggregate!r}")
+    return flat_engine(flat_aggregate)
 
 
-def _check_family(model, batch_mode: str):
-    """The flat layout runs IGMC only: the other families' flat forms need
-    the segment engine, which is not ported."""
-    if batch_mode == "flat" and not isinstance(model, IGMC):
-        raise NotImplementedError(
-            f"igmc_torch: {type(model).__name__} on the flat layout needs the "
-            f"segment engine, which is not ported (use batch_mode='dense')")
+def _flat_model(model, engine: str):
+    """`model` (a copy) set to run the flat engine `engine`: IGMC's
+    cfg.flat_aggregate; the other families run the segment engine only."""
+    if isinstance(model, IGMC):
+        model.cfg = dataclasses.replace(model.cfg, flat_aggregate=engine)
+    elif engine != "segment":
+        raise ValueError(f"flat_aggregate={engine!r} applies to the R-GCN trunk of "
+                         f"IGMC, not to {type(model).__name__}")
+    return model
 
 
 def _check_host_layout(dense_layout: str):
@@ -468,25 +516,31 @@ def test_once(
     DynamicGraphDataset), in rows of `dense_chunk` graphs when that is
     below batch_size; unless a flat engine is named in `flat_aggregate`,
     which keeps the flat layout (and says so), as the JAX package does
-    ('segment' and 'auto' name none there). The flat layout runs the fused
-    aggregate. Runs on `device` (default "cuda"; raises without a CUDA
-    device unless device="cpu"). The caller's model is not modified."""
+    ('segment' and 'auto' name none there). The flat layout runs the engine
+    `flat_aggregate` names (flat_engine): the segment engine on a packed
+    dataset device-resident (FlatPass), on a dynamic one host-collated;
+    blocked and pallas over host-built plans. Runs on `device` (default
+    "cuda"; raises without a CUDA device unless device="cpu"). The
+    caller's model is not modified."""
     flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
     if batch_mode == "dense" and flat_aggregate is not None:
         print("test_once: dense eval unavailable — flat_aggregate overrides "
               "the layout; using the flat path")
         batch_mode = "flat"
-    _check_layout(batch_mode, flat_aggregate, "evaluation")
-    _check_family(model, batch_mode)
+    engine = _check_layout(batch_mode, flat_aggregate)
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev).eval()
+    if batch_mode == "flat":
+        model = _flat_model(model, engine)
     if batch_mode == "dense" and dense_chunk and dense_chunk < batch_size:
         batch_size = dense_chunk
-    device_resident = batch_mode == "dense" and hasattr(test_dataset, "packed")
+    device_resident = (hasattr(test_dataset, "packed")
+                       and (batch_mode == "dense" or engine == "segment"))
     if device_resident:
         dd = DeviceDataset(test_dataset.packed, dev)
-        epoch = DensePass.plan(plan_buckets(test_dataset, dense_layout),
-                               batch_size, 8, dev)
+        epoch = (DensePass.plan(plan_buckets(test_dataset, dense_layout),
+                                batch_size, 8, dev) if batch_mode == "dense"
+                 else FlatPass.plan(test_dataset, batch_size, 8, dev))
         rmse_of = lambda m: dense_eval_rmse(make_eval_step(m), dd, epoch)
         preds_of = lambda m: dense_predict_all(make_eval_step(m), dd, epoch)
         ys = np.asarray(test_dataset.packed.y, np.float32)
@@ -494,7 +548,9 @@ def test_once(
         if batch_mode == "dense":
             _check_host_layout(dense_layout)
         loader = BatchLoader(test_dataset, batch_size, batch_mode=batch_mode,
-                             pin_memory=dev.type == "cuda")
+                             pin_memory=dev.type == "cuda",
+                             flat_aggregate=(None if batch_mode == "dense"
+                                             else flat_aggregate))
         rmse_of = lambda m: eval_rmse(make_eval_step(m), loader, dev)
     t_start = time.perf_counter()
     if ensemble and checkpoints:
@@ -562,23 +618,24 @@ def train_multiple_epochs(
     (`dense_layout` 'unified' or 'bipartite', at most `dense_buckets` size
     buckets, the epoch planned in [superbatch, batch_size] units), or, when
     a dataset has no packed arrays (DynamicGraphDataset), on host-collated
-    unified batches (one step per batch; no superbatches); 'flat' on
-    host-collated flat batches through the fused aggregate kernels
-    (superbatch does not apply, as in the JAX package). Host-collated
-    batches are extracted, collated and planned `prefetch` batches ahead on
-    the loader's threads (0: on this thread). `flat_aggregate` 'segment'
-    and 'auto' name no flat engine on the dense layout. `dense_chunk` N
+    unified batches (one step per batch; no superbatches); 'flat' through
+    the engine `flat_aggregate` names (flat_engine; the module docstring
+    says where each runs): the segment engine device-resident on packed
+    datasets when superbatch > 1, else host-collated; blocked and pallas
+    host-collated with their plans (superbatch does not apply, as in the
+    JAX package). Host-collated batches are extracted, collated and
+    planned `prefetch` batches ahead on the loader's threads (0: on this
+    thread). `flat_aggregate` 'segment' and 'auto' name no flat engine on
+    the dense layout. `dense_chunk` N
     (dense, static data only; N >= batch_size means off, else N must
     divide batch_size) takes each step over batch_size graphs streamed in
     N-graph slices and evaluates in N-graph rows. `profile_dir` writes a
     torch.profiler Chrome trace of the training pass of epoch start + 1
     there (the first epoch after the one that builds and warms up). Runs on
     `device` (default "cuda"; raises without a CUDA device unless
-    device="cpu"). Meshes and the other flat engines raise
-    NotImplementedError."""
+    device="cpu"). Meshes raise NotImplementedError."""
     flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
-    _check_layout(batch_mode, flat_aggregate, "training")
-    _check_family(model, batch_mode)
+    engine = _check_layout(batch_mode, flat_aggregate)
     if batch_mode == "dense" and flat_aggregate is not None:
         raise ValueError("flat_aggregate applies to batch_mode='flat'")
     if mesh is not None:
@@ -599,9 +656,14 @@ def train_multiple_epochs(
                          f"batch_size ({batch_size})")
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(dev)
+    if batch_mode == "flat":
+        model = _flat_model(model, engine)
     optimizer = make_optimizer(model.parameters(), lr, weight_decay)
     state = TrainState(model=model, optimizer=optimizer)
-    device_resident = batch_mode == "dense" and not host_dense
+    packed = hasattr(train_dataset, "packed") and hasattr(test_dataset, "packed")
+    flat_resident = (batch_mode == "flat" and engine == "segment" and packed
+                     and superbatch > 1)
+    device_resident = (batch_mode == "dense" and not host_dense) or flat_resident
     step_fn = (make_dense_row_step(model, optimizer, dense_chunk, ARR)
                if device_resident else make_train_step(model, optimizer, ARR))
     eval_fn = make_eval_step(model)
@@ -609,13 +671,17 @@ def train_multiple_epochs(
         K = max(superbatch, 1)
         dd_train = DeviceDataset(train_dataset.packed, dev)
         dd_test = DeviceDataset(test_dataset.packed, dev)
-        tr_buckets = plan_buckets(train_dataset, dense_layout, dense_buckets)
-        test_pass = DensePass.plan(
-            plan_buckets(test_dataset, dense_layout, dense_buckets),
-            dense_chunk or batch_size, K, dev)
+        if flat_resident:
+            test_pass = FlatPass.plan(test_dataset, batch_size, K, dev)
+        else:
+            tr_buckets = plan_buckets(train_dataset, dense_layout, dense_buckets)
+            test_pass = DensePass.plan(
+                plan_buckets(test_dataset, dense_layout, dense_buckets),
+                dense_chunk or batch_size, K, dev)
     else:
         kw = dict(prefetch=prefetch, batch_mode="dense" if host_dense else "flat",
-                  pin_memory=dev.type == "cuda")
+                  pin_memory=dev.type == "cuda",
+                  flat_aggregate=None if host_dense else flat_aggregate)
         train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
                                    seed=seed, **kw)
         test_loader = BatchLoader(test_dataset, batch_size, **kw)
@@ -641,7 +707,11 @@ def train_multiple_epochs(
             # the JAX package's epoch rng: the same buckets' permutations
             # and unit order for a given (seed, epoch)
             rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
-            train_pass = DensePass.plan(tr_buckets, batch_size, K, dev, rng)
+            if flat_resident:
+                order = rng.permutation(len(train_dataset)).astype(np.int64)
+                train_pass = FlatPass.plan(train_dataset, batch_size, K, dev, order)
+            else:
+                train_pass = DensePass.plan(tr_buckets, batch_size, K, dev, rng)
             host_seconds = time.perf_counter() - t_epoch
             train_loss = dense_train_epoch(step_fn, dd_train, train_pass,
                                            noise_gen, len(train_dataset))

@@ -3,8 +3,10 @@ ML-1M (igmc_tpu.data.synthetic.write_ml1m_format; the port on --device
 cpu): the same `batch mode` and `dense layout` lines under each layout
 rule (dynamic data included), a training run with --ensemble writing
 log.txt in the same format with RMSEs in a stated band, the files of a
-results directory, every unported flag refused by name, and ml_100k's official split with side
-features trained by both CLIs to RMSEs in a stated band. The main path's
+results directory, every unported flag refused by name, the flat engines
+(segment, blocked, DGCNN's flat form) trained through the CLI, and
+ml_100k's official split with side features trained by both CLIs to RMSEs
+in a stated band. The main path's
 options (--compute-dtype, --dense-chunk, --dense-strategy, --flat-aggregate
 segment) are in test_torch_port_options.py."""
 
@@ -18,7 +20,8 @@ import torch
 from igmc_tpu.cli.main import main as jax_main
 from igmc_tpu.data.synthetic import write_ml1m_format, write_ml100k_format
 
-from igmc_torch.cli.main import build_parser, main as port_main, unported_flags
+from igmc_torch.cli.main import (build_parser, choose_layouts, main as port_main,
+                                 unported_flags)
 
 torch.set_num_threads(1)
 
@@ -66,6 +69,8 @@ def run(which, argv, raw, cwd, monkeypatch, capsys):
      ["batch mode: dense (auto)", "dense layout: unified (auto)"]),
     (["--dynamic-dataset"],                     # dynamic data: unified slots
      ["batch mode: dense (auto)", "dense layout: unified (auto)"]),
+    (["--batch-mode", "flat"], []),             # the segment engine
+    (["--flat-aggregate", "blocked"], ["batch mode: flat (--flat-aggregate blocked)"]),
 ])
 def test_layout_lines_match_jax(raw, tmp_path, monkeypatch, capsys, flags, want):
     argv = BASE + ["--no-train", "--max-train-num", "60", "--max-test-num", "20"] + flags
@@ -110,33 +115,82 @@ def test_training_run_matches_jax_cli(raw, tmp_path, monkeypatch, capsys):
         assert "Ensemble test rmse is: " + logs[w][-1].split()[-1] in outs[w]
 
 
+# flags of the flat engines, refused until they were ported: they pass
+# unported_flags and choose the JAX CLI's (layout, engine), or exit with
+# its own message
+PORTED = "ported: "
+
+
 @pytest.mark.parametrize("flags,named", [
     (["--parallel", "ep"], "--parallel ep"),
     (["--n-devices", "2"], "--n-devices 2"),
     (["--dynamic-train", "--parallel", "ep"], "--parallel ep"),
     (["--dynamic-dataset", "--visualize"], "--visualize (it draws with matplotlib)"),
     (["--model", "dgcnn", "--parallel", "ep"], "--parallel ep"),
-    (["--batch-mode", "flat", "--flat-aggregate", "segment"], "segment engine"),
+    (["--batch-mode", "flat", "--flat-aggregate", "segment"], PORTED + "flat segment"),
     (["--dynamic-test", "--model", "gnn", "--visualize"],
      "--visualize (it draws with matplotlib)"),
     (["--dense-chunk", "10", "--parallel", "ep"], "--parallel ep"),
     (["--visualize"], "--visualize (it draws with matplotlib)"),
-    (["--profile-dir", "p", "--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
+    (["--profile-dir", "p", "--flat-aggregate", "blocked"], PORTED + "flat blocked"),
     (["--dynamic-val", "--n-devices", "4"], "--n-devices 4"),
-    (["--model", "gnn", "--batch-mode", "flat"], "segment engine"),
+    (["--model", "gnn", "--batch-mode", "flat"], PORTED + "flat segment"),
     (["--model", "dgcnn_rs", "--n-devices", "2"], "--n-devices 2"),
     (["--n-devices", "8", "--compute-dtype", "bfloat16"], "--n-devices 8"),
-    (["--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
-    (["--batch-mode", "flat"], "segment engine"),
+    (["--flat-aggregate", "blocked"], PORTED + "flat blocked"),
+    (["--batch-mode", "flat"], PORTED + "flat segment"),
     (["--dense-chunk", "5", "--dynamic-train", "--model", "dgcnn",
-      "--flat-aggregate", "blocked"], "--flat-aggregate blocked"),
+      "--flat-aggregate", "blocked"],
+     PORTED + "--flat-aggregate blocked/pallas applies to the R-GCN trunk; "
+              "use --model igmc"),
     (["--dense-chunk", "5", "--n-devices", "2"], "--n-devices 2"),
 ])
 def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch):
+    """Flags of code not ported exit naming the flag before any data is
+    read. The flat engines' flags (PORTED) pass unported_flags and choose
+    the flat layout and their engine, or exit with the JAX CLI's message."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match=re.escape(named) + ".*not ported"):
-        port_main(BASE + flags + ["--device", "cpu"])
-    assert not os.path.exists(tmp_path / "results")
+    if not named.startswith(PORTED):
+        with pytest.raises(SystemExit, match=re.escape(named) + ".*not ported"):
+            port_main(BASE + flags + ["--device", "cpu"])
+        assert not os.path.exists(tmp_path / "results")
+        return
+    args = build_parser().parse_args(BASE + flags + ["--device", "cpu"])
+    assert unported_flags(args) == []
+    want = named[len(PORTED):]
+    if want.startswith("--"):
+        with pytest.raises(SystemExit, match=re.escape(want)):
+            choose_layouts(args, None)
+    else:
+        mode, engine = want.split()
+        assert choose_layouts(args, None) == (
+            mode, None if engine == "segment" else engine, "unified")
+
+
+@pytest.mark.parametrize("flags", [["--batch-mode", "flat"],
+                                   ["--flat-aggregate", "blocked"],
+                                   ["--model", "dgcnn", "--batch-mode", "flat"]])
+def test_flat_engines_train_through_the_cli(raw, tmp_path, monkeypatch, capsys, flags):
+    """The flat engines through the CLI (the segment engine, the blocked
+    engine, DGCNN's flat form), 2 epochs on 60 + 20 pairs: log.txt holds
+    two epoch lines in the JAX format with finite RMSEs; for the segment
+    engine the JAX CLI's RMSEs lie within 0.25 of the port's (another
+    noise stream, 2 epochs)."""
+    argv = BASE + ["--max-train-num", "60", "--max-test-num", "20", "--epochs", "2",
+                   "--max-nodes-per-hop", "10"] + flags
+    whos = ("port", "jax") if flags == ["--batch-mode", "flat"] else ("port",)
+    logs = {}
+    for w in whos:
+        run(w, argv, raw, str(tmp_path / w), monkeypatch, capsys)
+        with open(os.path.join(str(tmp_path / w), "results", "ml_1m_testmode",
+                               "log.txt")) as f:
+            logs[w] = f.read().splitlines()
+        assert [LOG_LINE.match(l).group(1) for l in logs[w]] == ["1", "2"], logs[w]
+        assert all(np.isfinite(float(LOG_LINE.match(l).group(2))) for l in logs[w])
+    if "jax" in logs:
+        for a, b in zip(logs["port"], logs["jax"]):
+            assert abs(float(LOG_LINE.match(a).group(2))
+                       - float(LOG_LINE.match(b).group(2))) < 0.25, (a, b)
 
 
 def test_cli_defaults_datasets_and_device(raw, tmp_path, monkeypatch):

@@ -221,3 +221,35 @@ def test_cuda_layer1_backward_without_dx():
     for name, gc, gg in zip(("datt", "dbasis"), grads["cpu"], grads["cuda"]):
         torch.testing.assert_close(gg, gc, rtol=1e-5,
                                    atol=1e-4 * float(gc.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_cuda_blocked_engine_backward_matches_cpu(compute_dtype):
+    """The blocked engine's autograd Function (ops/blocked.py) on the card
+    against the CPU, forward and backward (dx, datt, dbasis) with hash
+    dropout masks: rtol / atol 1e-5 of each largest entry (float32 sums in
+    another order); under bfloat16 one bfloat16 ulp (2**-7) of it, since a
+    message summed in another order can round to the neighbouring value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from igmc_torch.ops.blocked import (blocked_rgcn_aggregate, dropout_masks,
+                                        plan_blocked_edges)
+
+    N, R, B, cin, cout = 600, 5, 4, 32, 32
+    (src, dst, etyp, mask), (x, att, basis) = make_case("hot_row", N, 3000, R, B,
+                                                         cin, cout, seed=8)
+    canon = np.arange(len(src), dtype=np.int32)
+    g = np.random.default_rng(9).uniform(-1, 1, (N, cout)).astype(np.float32)
+    out = {}
+    for where in ("cpu", "cuda"):
+        plan = plan_blocked_edges(src, dst, etyp, mask, canon, N, 256, 1024).to(where)
+        masks = dropout_masks(plan, 0.2, False, 12345)
+        ts = [torch.from_numpy(a).to(where).requires_grad_() for a in (x, att, basis)]
+        y = blocked_rgcn_aggregate(*ts, plan, masks, compute_dtype)
+        (y * torch.from_numpy(g).to(where)).sum().backward()
+        out[where] = [y.detach().cpu()] + [t.grad.cpu() for t in ts]
+    tol = 1e-5 if compute_dtype is None else 2.0 ** -7
+    for name, a, b in zip(("out", "dx", "datt", "dbasis"), out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * float(b.abs().max()),
+                                   msg=name)

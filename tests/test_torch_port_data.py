@@ -160,7 +160,7 @@ def test_batches_match_jax_pallas_loader(splits, monkeypatch, mnph, rows, eblk):
     want_loader = JaxBatchLoader(want_ds, 50, device_put=False, prefetch=0,
                                  flat_aggregate="pallas", plan_rows=rows,
                                  plan_eblk=eblk)
-    got_loader = BatchLoader(got_ds, 50)
+    got_loader = BatchLoader(got_ds, 50, flat_aggregate="pallas")
     assert got_loader.node_ladder == want_loader.node_ladder
     assert got_loader.edge_ladder == want_loader.edge_ladder
     want_batches, got_batches = list(want_loader), list(got_loader)
@@ -197,7 +197,8 @@ def test_training_batches_match_jax_shuffled_loader(splits, seed):
     want_loader = JaxBatchLoader(want_ds, 50, shuffle=True, seed=seed,
                                  device_put=False, prefetch=0,
                                  flat_aggregate="pallas")
-    got_loader = BatchLoader(got_ds, 50, shuffle=True, seed=seed)
+    got_loader = BatchLoader(got_ds, 50, shuffle=True, seed=seed,
+                             flat_aggregate="pallas")
     for epoch in (0, 1, 7):
         want_loader.epoch = got_loader.epoch = epoch
         want_batches, got_batches = list(want_loader), list(got_loader)
@@ -219,10 +220,10 @@ def test_graph_batch_to_moves_every_tensor(splits):
         got_split.test_labels, h=1, u_features=got_split.u_features,
         v_features=got_split.v_features, class_values=got_split.class_values,
         max_num=10)
-    batch = next(iter(BatchLoader(ds, 10, shuffle=True)))
+    batch = next(iter(BatchLoader(ds, 10, shuffle=True, flat_aggregate="pallas")))
     moved = batch.to("meta")
     for f in dataclasses.fields(moved):
-        if f.name not in ("aligned", "aligned_t"):
+        if f.name not in ("aligned", "aligned_t", "blocked"):
             assert getattr(moved, f.name).device.type == "meta", f.name
     assert all(a.device.type == "meta" for a in moved.aligned + moved.aligned_t)
     assert batch.edge_src.device.type == "cpu"   # the original stays put

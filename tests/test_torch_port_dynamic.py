@@ -126,7 +126,8 @@ def test_sampled_ladders_and_overflow_extension_match_jax(split, mode, caplog):
     cut to their first rung, one batch extends them as JAX's loader does
     (same sizes, same overflow count, same batch shape) and logs it."""
     got = BatchLoader(make(split, DynamicGraphDataset, backend="numpy"), BATCH,
-                      batch_mode=mode, prefetch=0)
+                      batch_mode=mode, prefetch=0,
+                      flat_aggregate="pallas" if mode == "flat" else None)
     want = jax_loader(make(split, JaxDynamicGraphDataset, backend="numpy"), mode)
     assert (got.node_ladder, got.edge_ladder) == (want.node_ladder, want.edge_ladder)
     for loader in (got, want):
@@ -188,7 +189,8 @@ def test_prefetch_gives_the_serial_batches(split, mode):
     out = []
     for prefetch in (2, 0):
         loader = BatchLoader(ds, BATCH, shuffle=True, seed=2, batch_mode=mode,
-                             prefetch=prefetch)
+                             prefetch=prefetch,
+                             flat_aggregate="pallas" if mode == "flat" else None)
         loader.node_ladder = loader.node_ladder[:1]
         loader.edge_ladder = loader.edge_ladder[:1]
         out.append([tensors(b) for _ in range(2) for b in loader])
@@ -206,9 +208,9 @@ def jax_cfg(**kw):
                          num_relations=5, num_bases=4, **kw)
 
 
-def port_model(params):
+def port_model(params, **kw):
     model = IGMC(IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32),
-                            num_relations=5, num_bases=4),
+                            num_relations=5, num_bases=4, **kw),
                  torch.Generator().manual_seed(0))
     model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     return model
@@ -259,7 +261,7 @@ def test_flat_fused_aggregate_step_on_dynamic_data_matches_jax(split):
     flat edge-dropout hash bit for bit, loss to rtol 1e-5, gradients to
     rtol 1e-4 / atol 1e-4 of the largest entry."""
     got_b = next(iter(BatchLoader(make(split, DynamicGraphDataset, backend="numpy"),
-                                  BATCH, shuffle=True, seed=7)))
+                                  BATCH, shuffle=True, seed=7, flat_aggregate="pallas")))
     want_b = next(iter(jax_loader(make(split, JaxDynamicGraphDataset, backend="numpy"),
                                   "flat", shuffle=True, seed=7)))
     cfg = jax_cfg(use_pallas=True, flat_aggregate="pallas")
@@ -272,7 +274,7 @@ def test_flat_fused_aggregate_step_on_dynamic_data_matches_jax(split):
     seed = int(jax.random.randint(k_edge, (), 0, jnp.iinfo(jnp.int32).max))
     _, k_drop = jax.random.split(k)
     keep = torch.from_numpy(np.array(jax.random.bernoulli(k_drop, 0.5, (BATCH, HIDDEN))))
-    model = port_model(params).train()
+    model = port_model(params, flat_aggregate="pallas").train()
     loss, _ = loss_fn(model, got_b, (seed, keep), 0.001)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
@@ -354,7 +356,7 @@ def test_training_on_dynamic_data(split, tmp_path, capsys):
     for name, p in sa.model.state_dict().items():
         assert torch.equal(p, sb.model.state_dict()[name]), name
     assert all(0 <= h["host_seconds"] <= h["seconds"] for h in sa.history)
-    rmse, _ = port_train(*d, batch_mode="flat", epochs=1)
+    rmse, _ = port_train(*d, batch_mode="flat", flat_aggregate="pallas", epochs=1)
     assert np.isfinite(rmse)
 
 

@@ -77,6 +77,7 @@ KEY_GAP = 1e-5
 TIE_FREE_SEED = 39
 FWD_ATOL = 1e-4
 FAMILIES = ("gnn", "dgcnn", "dgcnn_rs")
+FLIXSTER_R = 10                 # the flixster fixture's rating levels
 
 
 def varied_batch(seed: int):
@@ -217,14 +218,14 @@ def jax_family(name: str, k: int = 20):
     return cfg, dgcnn_init, dgcnn_forward
 
 
-def port_family(name: str, params, k: int = 20):
+def port_family(name: str, params, k: int = 20, num_relations: int = R):
     gen = torch.Generator().manual_seed(0)
     if name == "gnn":
         model = GNN(GNNConfig(num_features=4), gen)
     else:
         model = DGCNN(DGCNNConfig(num_features=4, latent_dim=(32, 32, 32, 1), k=k,
-                                  relational=name == "dgcnn_rs", num_relations=R,
-                                  num_bases=4), gen)
+                                  relational=name == "dgcnn_rs",
+                                  num_relations=num_relations, num_bases=4), gen)
     if params is not None:
         model.load_state_dict(params_from_jax(to_numpy(params)))
     return model
@@ -310,13 +311,98 @@ def test_family_state_dict_names_are_the_references(name):
 
 
 def test_families_refuse_flat_batches_and_need_noise_in_training():
-    from igmc_torch.batching.batch import GraphBatch
+    """Flat batches, refused until the segment engine was ported, are taken
+    (test_flat_family_forward_and_gradients_match_jax); training mode
+    without noise is refused on either layout, as is a relation-slotted
+    dense batch."""
+    import dataclasses
 
     model = port_family("dgcnn", None)
-    with pytest.raises(NotImplementedError, match="segment engine"):
-        model.eval()(GraphBatch.__new__(GraphBatch))
     with pytest.raises(ValueError, match="noise"):
         model.train()(to_port(varied_batch(1)))
+    with pytest.raises(ValueError, match="noise"):
+        model.train()(flat_batch(varied_batch(1)))
+    with pytest.raises(NotImplementedError, match="relation-slotted"):
+        model.eval()(dataclasses.replace(to_port(varied_batch(1)), rel_caps=(64,)))
+
+
+def flat_batch(jb):
+    """The flat GraphBatch of the same graphs as the dense batch `jb`:
+    each graph's valid node rows in slot order, its forward edges, then
+    their reverses; targets at slot rows 0 and 1."""
+    from igmc_torch.batching.batch import GraphBatch
+
+    node_mask, edge_mask = np.asarray(jb.node_mask), np.asarray(jb.edge_mask)
+    rows = np.cumsum(node_mask.reshape(-1)) - 1            # slot -> flat row
+    nb, n = node_mask.shape
+    base = np.arange(nb)[:, None] * n
+    src = rows[(base + np.asarray(jb.edge_src))[edge_mask]]
+    dst = rows[(base + np.asarray(jb.edge_dst))[edge_mask]]
+    etype = np.asarray(jb.edge_type)[edge_mask]
+    ne, nn = len(src), int(node_mask.sum())
+    t = lambda a, dt=np.int32: torch.from_numpy(np.ascontiguousarray(a).astype(dt))
+    return GraphBatch(
+        node_label=t(np.asarray(jb.node_label)[node_mask]),
+        edge_src=t(np.concatenate([src, dst])), edge_dst=t(np.concatenate([dst, src])),
+        edge_type=t(np.concatenate([etype, etype])),
+        edge_canon=t(np.concatenate([np.arange(ne), np.arange(ne)])),
+        node2graph=t(np.nonzero(node_mask)[0]), node_mask=torch.ones(nn, dtype=torch.bool),
+        edge_mask=torch.ones(2 * ne, dtype=torch.bool), y=t(jb.y, np.float32),
+        graph_mask=t(jb.graph_mask, bool), target_u=t(rows[np.arange(nb) * n]),
+        target_v=t(rows[np.arange(nb) * n + 1]),
+        edge_id=t(np.concatenate([np.arange(ne), np.arange(ne)]), np.int64))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_flat_family_forward_and_gradients_match_jax(name):
+    """The flat forms (segment engine, masked_segment_sum / global_sort_pool
+    readouts) of the tie-free batch's graphs: eval predictions equal the
+    JAX package's flat forward and the port's dense forward to atol
+    FWD_ATOL; training with JAX's [E] edge mask and feature mask injected
+    to atol FWD_ATOL, and every gradient to 1e-4 of its largest entry."""
+    from igmc_tpu.batching.batch import GraphBatch as JaxGraphBatch
+
+    jb = varied_batch(TIE_FREE_SEED)
+    cfg, init, forward = jax_family(name)
+    params = init(jax.random.PRNGKey(5), cfg)
+    model = port_family(name, params)
+    fb = flat_batch(jb)
+    jfb = JaxGraphBatch(**{f: (None if getattr(fb, f) is None
+                               else np.asarray(getattr(fb, f).numpy()))
+                           for f in ("node_label", "edge_src", "edge_dst", "edge_type",
+                                     "edge_canon", "node2graph", "node_mask",
+                                     "edge_mask", "y", "graph_mask", "target_u",
+                                     "target_v")})
+    want = np.asarray(forward(params, jfb, cfg, None, False))
+    with torch.no_grad():
+        got = model.eval()(fb)
+        dense = model.eval()(to_port(jb))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=FWD_ATOL)
+    np.testing.assert_allclose(dense.numpy(), want, rtol=0, atol=FWD_ATOL)
+
+    key = jax.random.PRNGKey(9)
+    k, k_edge = jax.random.split(key)
+    keep_e = t_(jax.random.bernoulli(k_edge, 0.8, (fb.num_edges,)))
+    _, k_drop = jax.random.split(k)
+    noise = (keep_e, t_(jax.random.bernoulli(k_drop, 0.5, (B, HIDDEN))))
+    y = np.asarray(jb.y)
+    jax_loss = lambda p: (jnp.mean((forward(p, jfb, cfg, key, True) - y) ** 2)
+                          + 0.001 * jax_arr_regularizer(p))
+    want_t = np.asarray(forward(params, jfb, cfg, key, True))
+    want_grads = jax.grad(jax_loss)(params)
+    model.train()
+    got_t = model(fb, noise)
+    np.testing.assert_allclose(got_t.detach().numpy(), want_t, rtol=0, atol=FWD_ATOL)
+    model.zero_grad()
+    loss = (((model(fb, noise) - fb.y) ** 2).mean() + 0.001 * arr_regularizer(model))
+    loss.backward()
+    want_sd = params_from_jax(to_numpy(want_grads))
+    for pname, p in model.named_parameters():
+        grad_close(p.grad, want_sd[pname], pname)
+
+
+def t_(a):
+    return torch.from_numpy(np.array(a))
 
 
 # -- the training loop ------------------------------------------------------------
@@ -328,6 +414,7 @@ def flixster_sets():
         mp.setenv("IGMC_RAW_DATA", FIXTURES)
         split = load_data_monti("flixster", testing=True)
     A = BipartiteCSR(split.adj_train)
+    assert len(split.class_values) == FLIXSTER_R
     kw = dict(h=1, class_values=split.class_values, backend="numpy")
     tr = ((split.train_u_indices[:120], split.train_v_indices[:120]),
           split.train_labels[:120])
@@ -338,8 +425,8 @@ def flixster_sets():
                               ("dynamic", DynamicGraphDataset))}
 
 
-def family_model(name, k=20):
-    return port_family(name, None, k=k)
+def family_model(name, k=20, num_relations=R):
+    return port_family(name, None, k=k, num_relations=num_relations)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -369,19 +456,23 @@ def test_chunked_row_step_equals_whole_row_step(name, flixster_sets):
                                        ("dgcnn_rs", "static"), ("dgcnn_rs", "dynamic")])
 def test_families_train_on_static_and_dynamic_data(name, kind, flixster_sets):
     """train_multiple_epochs on the device-assembled (static) and the
-    host-collated (dynamic) dense path: finite losses and RMSEs; the flat
-    layout is refused for the families."""
+    host-collated (dynamic) dense path, and on the flat layout's segment
+    engine (refused until it was ported; static: device-resident, dynamic:
+    the loader): finite losses and RMSEs; the blocked engine is IGMC's
+    only and raises ValueError for the families."""
     train, test = flixster_sets[kind]
-    model = family_model(name)
-    rmse, state = train_multiple_epochs(
-        train, test, model, epochs=2, batch_size=30, lr=1e-3, lr_decay_factor=0.1,
-        lr_decay_step_size=50, ARR=0.001, batch_mode="dense", prefetch=0,
-        device="cpu")
+    model = family_model(name, num_relations=FLIXSTER_R)
+    kw = dict(lr=1e-3, lr_decay_factor=0.1, lr_decay_step_size=50, ARR=0.001,
+              prefetch=0, device="cpu")
+    rmse, state = train_multiple_epochs(train, test, model, epochs=2, batch_size=30,
+                                        batch_mode="dense", **kw)
     assert np.isfinite(rmse) and state.epoch == 2
-    with pytest.raises(NotImplementedError, match="segment engine"):
-        train_multiple_epochs(train, test, model, epochs=1, batch_size=30, lr=1e-3,
-                              lr_decay_factor=0.1, lr_decay_step_size=50,
-                              batch_mode="flat", device="cpu")
+    rmse, state = train_multiple_epochs(train, test, model, epochs=1, batch_size=30,
+                                        batch_mode="flat", **kw)
+    assert np.isfinite(rmse) and state.epoch == 1
+    with pytest.raises(ValueError, match="R-GCN trunk of IGMC"):
+        train_multiple_epochs(train, test, model, epochs=1, batch_size=30,
+                              batch_mode="flat", flat_aggregate="blocked", **kw)
 
 
 # -- the CLI --------------------------------------------------------------------

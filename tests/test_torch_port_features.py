@@ -148,7 +148,7 @@ def jax_cfg(n_side, **kw):
 def port_model(params, n_side):
     model = IGMC(IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32),
                             num_relations=5, num_bases=4, side_features=True,
-                            n_side_features=n_side),
+                            n_side_features=n_side, flat_aggregate="pallas"),
                  torch.Generator().manual_seed(0))
     assert model.lin1.weight.shape == (HIDDEN, 256 + n_side)
     model.load_state_dict(state_dict_from_params(params))
@@ -164,7 +164,7 @@ def _batches(data, layout, train):
         kw = dict(shuffle=True, seed=2) if train else {}
         want = next(iter(JaxBatchLoader(jds, BATCH, device_put=False, prefetch=0,
                                         flat_aggregate="pallas", **kw)))
-        got = next(iter(BatchLoader(pds, BATCH, **kw)))
+        got = next(iter(BatchLoader(pds, BATCH, flat_aggregate="pallas", **kw)))
         return want, got
     b = _buckets(pds, layout == "bipartite")[0]
     idx = b.indices[:BATCH]

@@ -44,7 +44,8 @@ def jax_cfg(aggr="mean", rows=256):
 
 def port_cfg(aggr="mean"):
     return IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32),
-                      num_relations=5, num_bases=4, aggr=aggr)
+                      num_relations=5, num_bases=4, aggr=aggr,
+                      flat_aggregate="pallas")
 
 
 def jax_params(seed):
@@ -163,7 +164,7 @@ def test_forward_matches_jax_pallas(data, monkeypatch, aggr, rows, eblk):
         want_ds, 50, device_put=False, prefetch=0, flat_aggregate="pallas",
         plan_rows=rows, plan_eblk=eblk)))
     want = np.asarray(igmc_forward(params, want_batch, cfg, None, False))
-    got_batch = next(iter(BatchLoader(got_ds, 50)))
+    got_batch = next(iter(BatchLoader(got_ds, 50, flat_aggregate="pallas")))
     assert got_batch.num_nodes % rows == 0
     with torch.no_grad():
         got = port_model(params, aggr)(got_batch)
@@ -175,13 +176,14 @@ def test_forward_refuses_training_mode_and_other_aggr(data):
     """Training mode without its noise and aggregations the kernel lacks
     raise; a gradient through an evaluation batch (no twin plan) raises."""
     _, got_ds = data
-    batch = next(iter(BatchLoader(got_ds, 10)))
+    batch = next(iter(BatchLoader(got_ds, 10, flat_aggregate="pallas")))
     model = IGMC(port_cfg(), torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="eval"):
         model.train()(batch)
     with pytest.raises(RuntimeError, match="shuffle=True"):
         model.eval()(batch)
-    relmean = IGMC(IGMCConfig(aggr="relmean"), torch.Generator().manual_seed(0))
+    relmean = IGMC(IGMCConfig(aggr="relmean", flat_aggregate="pallas"),
+                   torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="relmean"):
         relmean.eval()(batch)
 
@@ -200,7 +202,7 @@ def test_test_once_matches_jax(data, capsys):
     template = IGMC(port_cfg(), torch.Generator().manual_seed(0))
     got = port_test_once(got_ds, template, 50,
                          params=params_from_jax(to_numpy(params)),
-                         device="cpu")
+                         device="cpu", flat_aggregate="pallas")
     assert abs(got - want) <= 1e-5, (got, want)
     assert "Test Once RMSE:" in capsys.readouterr().out
     # the caller's model is left as it was
@@ -222,16 +224,23 @@ def test_test_once_ensemble_matches_jax(data, tmp_path):
     logged = []
     got = port_test_once(got_ds, IGMC(port_cfg(), torch.Generator().manual_seed(0)),
                          50, ensemble=True, checkpoints=ckpts, device="cpu",
+                         flat_aggregate="pallas",
                          logger=lambda rec, _: logged.append(rec))
     assert abs(got - want) <= 1e-5, (got, want)
     assert logged == [{"epoch": "ensemble", "train_loss": 0, "test_rmse": got}]
 
 
 def test_test_once_refuses_other_engines_and_missing_cuda(data, monkeypatch):
+    """The segment engine (once refused here) evaluates the same model to
+    the fused aggregate's RMSE within 1e-5; an engine the JAX package lacks
+    raises ValueError; the default device without a card raises."""
     _, got_ds = data
     model = IGMC(port_cfg(), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="segment"):
-        port_test_once(got_ds, model, 50, flat_aggregate="segment", device="cpu")
+    seg = port_test_once(got_ds, model, 50, flat_aggregate="segment", device="cpu")
+    fused = port_test_once(got_ds, model, 50, flat_aggregate="pallas", device="cpu")
+    assert abs(seg - fused) <= 1e-5, (seg, fused)
+    with pytest.raises(ValueError, match="unknown flat_aggregate"):
+        port_test_once(got_ds, model, 50, flat_aggregate="fused", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_test_once(got_ds, model, 50)      # default device: the card

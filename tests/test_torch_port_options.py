@@ -451,10 +451,11 @@ def test_flat_forward_ignores_compute_dtype(datasets):
     bfloat16 config, as JAX's does: the same predictions, bit for bit."""
     from igmc_torch.batching import BatchLoader
 
-    batch = next(iter(BatchLoader(datasets[1], DATA_BATCH)))
+    batch = next(iter(BatchLoader(datasets[1], DATA_BATCH, flat_aggregate="pallas")))
     preds = []
     for cd in (None, "bfloat16"):
-        model = IGMC(IGMCConfig(num_relations=R, compute_dtype=cd),
+        model = IGMC(IGMCConfig(num_relations=R, compute_dtype=cd,
+                                flat_aggregate="pallas"),
                      torch.Generator().manual_seed(1)).eval()
         with torch.no_grad():
             preds.append(model(batch))

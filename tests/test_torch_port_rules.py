@@ -28,7 +28,8 @@ PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
                 "igmc_torch.data.splits", "igmc_torch.data.synthetic",
                 "igmc_torch.train.flaxmsgpack", "igmc_torch.data.hdf5",
                 "igmc_torch.data.matio", "igmc_torch.models.families",
-                "igmc_torch.ops.sort_pool")
+                "igmc_torch.ops.sort_pool", "igmc_torch.ops.segment",
+                "igmc_torch.ops.blocked")
 
 
 def _port_sources():

@@ -51,7 +51,7 @@ def jax_cfg(**kw):
 
 def port_cfg(**kw):
     return IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32),
-                      num_relations=5, num_bases=4, **kw)
+                      num_relations=5, num_bases=4, flat_aggregate="pallas", **kw)
 
 
 def jax_fwd(cfg):
@@ -113,7 +113,8 @@ def _first_training_batches(data, seed=3):
     want = next(iter(JaxBatchLoader(want_ds, BATCH, shuffle=True, seed=seed,
                                     device_put=False, prefetch=0,
                                     flat_aggregate="pallas")))
-    got = next(iter(BatchLoader(got_ds, BATCH, shuffle=True, seed=seed)))
+    got = next(iter(BatchLoader(got_ds, BATCH, shuffle=True, seed=seed,
+                                flat_aggregate="pallas")))
     return want, got
 
 
@@ -213,7 +214,7 @@ def _run_port(data, monkeypatch, params, noise, **kw):
     rmse, state = train_multiple_epochs(
         data["train"][1], data["test"][1], port_model(params), epochs=2,
         batch_size=BATCH, lr=1e-3, lr_decay_factor=0.1, lr_decay_step_size=1,
-        ARR=0.001, seed=1, logger=log, device="cpu", **kw)
+        ARR=0.001, seed=1, logger=log, device="cpu", flat_aggregate="pallas", **kw)
     assert next(feed, None) is None     # every step drew its noise
     return rmse, state, infos
 
@@ -299,16 +300,20 @@ def test_resume_checkpoints_and_log_format(data, monkeypatch, tmp_path):
 
 
 def test_train_multiple_epochs_refuses_what_is_not_ported(data, monkeypatch):
-    """The segment and blocked flat engines and meshes raise
+    """The segment and blocked flat engines (refused until they were
+    ported) train an epoch to a finite RMSE, the model copy set to the
+    engine; an unknown engine raises ValueError, meshes raise
     NotImplementedError; dense_chunk off the dense layout raises the JAX
     package's ValueError (it runs on the dense layout:
     test_torch_port_chunk.py)."""
     args = (data["train"][1], data["test"][1],
             IGMC(port_cfg(), torch.Generator().manual_seed(0)), 1, BATCH, 1e-3,
             0.1, 50)
+    for engine in ("segment", "blocked"):
+        rmse, state = train_multiple_epochs(*args, device="cpu", flat_aggregate=engine)
+        assert np.isfinite(rmse) and state.model.cfg.flat_aggregate == engine
     for kw, exc, match in (
-            ({"flat_aggregate": "segment"}, NotImplementedError, "segment"),
-            ({"flat_aggregate": "blocked"}, NotImplementedError, "blocked"),
+            ({"flat_aggregate": "fused"}, ValueError, "unknown flat_aggregate"),
             ({"mesh": object()}, NotImplementedError, "mesh"),
             ({"batch_mode": "dense", "mesh": object()}, NotImplementedError, "mesh"),
             ({"dense_chunk": 10}, ValueError, "dense_chunk needs batch_mode='dense'")):
