@@ -121,8 +121,9 @@ non-zero:
      host-collated predictions of phase 3's static test set equal to its
      device-assembled ones (1e-5) and test_once's RMSE of the dynamic test
      set equal to the static one's; (b) flat training through K1/K2 (plans
-     built on the prefetch threads) for 1 epoch, launches counted, held
-     against the CPU twin with the same noise (DYN_FLAT_RTOL); (c) ml_25m
+     built on the prefetch threads) for 1 epoch on DYN_FLAT_PAIRS training
+     and held-out pairs, launches counted, held against the CPU twin with
+     the same noise (DYN_FLAT_RTOL); (c) ml_25m
      data from `write_ml25m_format` cut to ML25M_CUT, loaded by the port's
      time split (R = 10), 1 epoch of dynamic dense training, finite RMSE;
      (d) a `StaticGraphDataset(root=...)` cache of 20,000 training pairs
@@ -162,10 +163,27 @@ non-zero:
      yahoo_music fixture (R 71) for 1 epoch with conv_strategy auto (its
      choice printed); GNN, DGCNN and DGCNN_RS on flixster's flat batches,
      a card-vs-CPU step each (DGCNN on a batch whose SortPool order agrees)
-     and an epoch; the CLI on ml_100k with
-     `--batch-mode flat` (2 epochs), `--flat-aggregate blocked` and
-     `--model dgcnn --batch-mode flat` (1 epoch each), finite RMSEs in
-     log.txt.
+     and an epoch; the CLI on ml_100k with `--batch-mode flat` for 1 epoch
+     (FLAT_CLI), finite RMSEs in log.txt;
+ 22. several devices (igmc_torch.parallel), K1 and K2 launching 0 times,
+     at full width on phase 6 / 10's ML-1M pairs: world size 1 over NCCL in
+     this process (the dense DP step equal to the plain step bit for bit
+     with deterministic scatters; EP at one rank against the flat segment
+     forward, rtol / atol EP_TOL), then two ranks sharing the card over
+     gloo (collectives staged through host memory: their times measure the
+     port, not scaling): the dense DP step and a flat DP step against the
+     single-device step with dropout on (phase 7's tolerances), one
+     dense-DP epoch on the bipartite layout with the ranks' parameters
+     identical bit for bit after it and the DP test RMSE within 1e-5 of the
+     single-device RMSE of the same parameters, Predictor(mesh=) on the
+     2,000 held-out pairs against Predictor (SERVE_ATOL), EP on a giant
+     batch of EP_GRAPHS graphs (the forward against the flat forward, one
+     train step per local aggregate, blocked against segment to phase 7's
+     tolerances); the DP step and all_reduce times at both world sizes,
+     the EP forward time and comm_stats' halo against all-gather bytes per
+     layer, printed beside the card's name and power limit; then the CLI on
+     ml_100k (MULTI_CLI_CUT pairs) for 1 epoch with `--n-devices 2` and with
+     `--parallel ep --n-devices 2`, finite RMSEs in log.txt.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -218,6 +236,11 @@ DYN_FLAT_RTOL = 1e-3
 # (synthesize_ratings draws each user's items over all movies' weights)
 ML25M_CUT = dict(n_users=20_000, n_movies=8_000, n_ratings=1_000_000, seed=0)
 CACHE_PAIRS = 20_000             # ML-1M training pairs through the .npz cache
+# phase 18 (b): the training and held-out pairs of dynamic flat training
+# through K1/K2 and its CPU twin, cut in depth from MAX_NUM (the twin's
+# epoch on the CPU took ~76 s of the run) to keep the whole run within its
+# budget once phase 22 came
+DYN_FLAT_PAIRS = 500
 # the Monti fixtures (tests/torch_make_monti_fixtures.py) and each CLI run:
 # flags past --data-name NAME --testing, and the epochs they train
 MONTI_ROOT = os.path.join(REPO, "tests", "torch_fixtures", "monti")
@@ -232,13 +255,30 @@ FAMILY_STEPS = 40                # training batches timed per family
 # phase 21: blocked batches timed on the card (each step launches ~10,000
 # kernels, and the profiler's trace of 10 steps took over a minute to read)
 BLOCKED_BATCHES = 2
-# phase 21's CLI runs on ml_100k, flags past --data-name ml_100k --testing
-# and the epochs they train
+# phase 21's CLI run on ml_100k, flags past --data-name ml_100k --testing
+# and the epochs it trains. Cut in depth to keep the whole run within its
+# budget once phase 22 came: one run of 1 epoch, where there were three (2
+# epochs of --batch-mode flat, 1 of --flat-aggregate blocked, 1 of --model
+# dgcnn --batch-mode flat; ~70 s); phase 21 still drives the blocked engine
+# and DGCNN's flat form in the library, and tier-1 runs all three flags
+# through the CLI on the CPU
 FLAT_CLI = {
-    "segment": (["--batch-mode", "flat", "--epochs", "2"], 2),
-    "blocked": (["--flat-aggregate", "blocked", "--epochs", "1"], 1),
-    "dgcnn": (["--model", "dgcnn", "--batch-mode", "flat", "--epochs", "1"], 1),
+    "segment": (["--batch-mode", "flat", "--epochs", "1"], 1),
 }
+# phase 22: the EP giant batch (ML-1M test graphs), the steps and
+# all_reduces timed per world size, and the CLI runs on ml_100k (flags past
+# --data-name ml_100k --testing --epochs 1). MULTI_CLI_CUT bounds their
+# depth: the repo's synthetic ml_100k (1,988 + 497 pairs) runs whole, a
+# real one given with --raw-data (80,000 + 20,000) runs cut
+EP_GRAPHS = 400
+EP_TOL = 2e-5                    # EP vs flat forward (the JAX package's bound)
+DP_TIMED = 20
+MULTI_CLI = {
+    "dp": (["--n-devices", "2"], "Data-parallel training over 2 devices"),
+    "ep": (["--parallel", "ep", "--n-devices", "2"],
+           "Edge-partitioned training over 2 devices"),
+}
+MULTI_CLI_CUT = ["--max-train-num", "2000", "--max-test-num", "500"]
 # SortPool keys (the DGCNN trunk's last channel, tanh) card vs CPU
 KEY_ATOL = 1e-5
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
@@ -1608,16 +1648,23 @@ def dynamic_phase(split, cfg, test_ds, dense_ckpts, dev, raw_data, work,
 
     # ---- (b) dynamic flat training through K1 / K2 -------------------------
     flat_kw = dict(batch_mode="flat", flat_aggregate="pallas", epochs=1)
+    cut = dict(kw, max_num=DYN_FLAT_PAIRS)
+    train_flat = DynamicGraphDataset(
+        split.adj_train, (split.train_u_indices, split.train_v_indices),
+        split.train_labels, **cut)
+    test_flat = DynamicGraphDataset(
+        split.adj_train, (split.test_u_indices, split.test_v_indices),
+        split.test_labels, **cut)
     reset_counts()
-    infos, state, wall = _dynamic_run(cfg, train_dyn, test_dyn, 2, **flat_kw)
+    infos, state, wall = _dynamic_run(cfg, train_flat, test_flat, 2, **flat_kw)
     read_counts("dynamic_flat")
-    steps = len(BatchLoader(train_dyn, BATCH_SIZE))
+    steps = len(BatchLoader(train_flat, BATCH_SIZE))
     expect("dynamic_flat", "rgcn_aggregate_fwd",
-           layers * (steps + len(BatchLoader(test_dyn, BATCH_SIZE))))
+           layers * (steps + len(BatchLoader(test_flat, BATCH_SIZE))))
     expect("dynamic_flat", "rgcn_aggregate_bwd", layers * steps)
     h = state.history[0]
     t0 = time.perf_counter()
-    cpu_infos = _dynamic_run(cfg, train_dyn, test_dyn, 2, device="cpu", **flat_kw)[0]
+    cpu_infos = _dynamic_run(cfg, train_flat, test_flat, 2, device="cpu", **flat_kw)[0]
     cpu_s = time.perf_counter() - t0
     rel = max(abs(infos[0][k] - cpu_infos[0][k]) / abs(cpu_infos[0][k])
               for k in ("train_loss", "test_rmse"))
@@ -2285,6 +2332,326 @@ def flat_engines_phase(split, cfg, train_ds, test_ds, flixster, dev, raw_data, w
     return out
 
 
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _compare_steps(label, got, want, loss_rtol=1e-5, grad_tol=GRAD_TOL):
+    """`got` and `want` = (loss, gradients by name): fail unless the loss
+    agrees to loss_rtol and every gradient to grad_tol of its largest
+    entry (phase 7's tolerances). Returns (loss relative difference, worst
+    gradient difference over its largest entry)."""
+    (lg, gg), (lw, gw) = got, want
+    rel = abs(lg - lw) / max(abs(lw), 1e-30)
+    if rel > loss_rtol:
+        fail(f"{label}: loss {lg} != {lw} (rtol {loss_rtol})")
+    worst = 0.0
+    for k, w in gw.items():
+        d = float((gg[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, d)
+        if d > grad_tol:
+            fail(f"{label}: gradient of {k} differs by {d:.3e} of its largest entry")
+    print(f"[multi] {label}: loss {lg:.6f} vs {lw:.6f} (rel {rel:.3e}); worst "
+          f"gradient difference {worst:.3e} of its largest entry", flush=True)
+    return rel, worst
+
+
+def _dense_row(train_ds, dev):
+    """(DeviceDataset, the first bipartite row's assemble, the row) of the
+    training set on `dev`."""
+    from igmc_torch.batching import DeviceDataset
+    from igmc_torch.train import DensePass, plan_buckets
+
+    dd = DeviceDataset(train_ds.packed, dev)
+    rows = DensePass.plan(plan_buckets(train_ds, "bipartite"), BATCH_SIZE, 1, dev)
+    return (lambda g: rows.assemble(dd, rows.bucket_of[0], g)), rows.gids[0]
+
+
+def _giant_batch(test_ds, D):
+    """The first EP_GRAPHS held-out graphs collated flat, node pad a
+    multiple of 8 * D (build_ep_batches' quantum)."""
+    from igmc_torch.batching.batch import collate
+
+    graphs = [test_ds.get(i) for i in range(EP_GRAPHS)]
+    q = 8 * D
+    node_pad = -(-sum(g.num_nodes for g in graphs) // q) * q
+    edge_pad = -(-sum(g.num_edges for g in graphs) // 8) * 8
+    return collate(graphs, EP_GRAPHS, node_pad, edge_pad)
+
+
+def _ep_forward_check(label, model, batch, mesh):
+    """The EP forward of `batch` over the mesh against the flat segment
+    forward (EP_TOL); returns (max abs error, EP forward ms by CUDA events,
+    the EPBatch, this rank's shard)."""
+    import torch
+    from igmc_torch.parallel import ep
+
+    epb = ep.partition_batch(batch, mesh.size)
+    shard = ep.ep_shard(epb, mesh.rank, mesh.device)
+    with torch.no_grad():
+        got = mesh.all_gather(ep.ep_forward(model, shard, mesh)).cpu()
+        want = model(batch.to(mesh.device)).cpu()
+        ms = cuda_ms(lambda: ep.ep_forward(model, shard, mesh), 5)
+    err = float((got - want).abs().max())
+    try:
+        torch.testing.assert_close(got, want, rtol=EP_TOL, atol=EP_TOL)
+    except AssertionError as e:
+        fail(f"{label}: the EP forward disagrees with the flat forward: {e}")
+    print(f"[multi] {label}: EP forward of {batch.num_graphs} graphs ({batch.num_nodes} "
+          f"node rows, {int(batch.edge_mask.sum())} directed edges) over "
+          f"{mesh.size} rank(s) vs the flat segment forward: max abs diff "
+          f"{err:.3e} (rtol/atol {EP_TOL}); {ms:.3f} ms per forward", flush=True)
+    return err, ms, epb, shard
+
+
+def _world1(mesh, spec):
+    """Phase 22 at world size 1 (this process, NCCL): the dense DP step
+    equals the plain step bit for bit; step and all_reduce times; EP at one
+    rank equals the flat segment forward."""
+    import torch
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.train import make_dense_row_step, make_dp_row_step, make_optimizer
+
+    if mesh.backend != "nccl":
+        fail(f"world size 1 on the card ran over {mesh.backend}, not nccl")
+    cfg, dev = spec["cfg"], mesh.device
+    assemble, row = _dense_row(spec["train"], dev)
+    seed, keep = draw_noise(torch.Generator().manual_seed(9), BATCH_SIZE)
+    noise = (seed, keep.to(dev))
+    models, losses = [], []
+    # scatters made deterministic so that the two steps are the same
+    # arithmetic (index_add's atomics sum in a varying order)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for make in (lambda m, o: make_dense_row_step(m, o, 0, 0.001),
+                     lambda m, o: make_dp_row_step(m, o, mesh, 0.001)):
+            m = IGMC(cfg, torch.Generator().manual_seed(5)).to(dev).train()
+            step = make(m, make_optimizer(m.parameters(), 1e-3))
+            losses.append(step(assemble, row, noise)[0])
+            models.append((m, step))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diffs = {k: float((a - b).detach().abs().max()) for (k, a), b in
+             zip(models[0][0].named_parameters(), models[1][0].parameters())}
+    if not (torch.equal(losses[0], losses[1]) and not any(diffs.values())):
+        fail(f"world size 1: the dense DP step is not the plain step bit for bit: "
+             f"loss {float(losses[0])!r} vs {float(losses[1])!r}, parameters "
+             f"{ {k: v for k, v in diffs.items() if v} }")
+    print(f"[multi] world 1 (nccl): with deterministic scatters the dense DP step "
+          f"equals the plain step bit for bit (loss {float(losses[0]):.6f}, every "
+          f"parameter after Adam)", flush=True)
+    dp_step = models[1][1]
+    out = {"dp_step_ms": cuda_ms(lambda: dp_step(assemble, row, noise), DP_TIMED)}
+    bucket = torch.zeros(sum(p.numel() for p in models[1][0].parameters()) + 1,
+                         device=dev)
+    out["all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce(bucket), DP_TIMED)
+    model = IGMC(cfg, torch.Generator().manual_seed(5)).to(dev).eval()
+    out["ep_err"], out["ep_fwd_ms"], _, _ = _ep_forward_check(
+        "world 1", model, _giant_batch(spec["test"], 1), mesh)
+    return out
+
+
+def _world2(mesh, spec):
+    """Phase 22 on one rank of the two-rank group sharing the card (gloo):
+    the checks of multi_device_phase; returns this rank's numbers."""
+    import numpy as np
+    import torch
+    from igmc_torch.batching import DeviceDataset
+    from igmc_torch.batching.batch import collate, pad_ladder
+    from igmc_torch.kernels.rgcn_aggregate import rgcn_aggregate, rgcn_aggregate_bwd
+    from igmc_torch.models import IGMC, draw_noise
+    from igmc_torch.parallel import dp, ep
+    from igmc_torch.serve import Predictor
+    from igmc_torch.train import (DensePass, dense_eval_rmse, make_dense_row_step,
+                                  make_dp_row_step, make_eval_step, make_optimizer,
+                                  make_train_step, plan_buckets, train_multiple_epochs)
+
+    cfg, dev, r = spec["cfg"], mesh.device, mesh.rank
+    train_ds, test_ds = spec["train"], spec["test"]
+    out = {"rank": r, "backend": mesh.backend, "device": str(dev)}
+    new = lambda: IGMC(cfg, torch.Generator().manual_seed(5)).to(dev).train()
+    noise_cpu = draw_noise(torch.Generator().manual_seed(9), BATCH_SIZE)
+    noise = (noise_cpu[0], noise_cpu[1].to(dev))
+
+    # the dense DP step against the single-device step on one gid row
+    assemble, row = _dense_row(train_ds, dev)
+    m1 = new()
+    l1, _ = make_dense_row_step(m1, make_optimizer(m1.parameters(), 1e-3), 0,
+                                0.001)(assemble, row, noise)
+    m2 = new()
+    dp_step = make_dp_row_step(m2, make_optimizer(m2.parameters(), 1e-3), mesh, 0.001)
+    l2, _ = dp_step(assemble, row, noise)
+    out["dense_step"] = _compare_steps(f"rank {r}: dense DP step vs single-device",
+                                       (float(l2), _grads(m2)), (float(l1), _grads(m1)))
+    out["dp_step_ms"] = cuda_ms(lambda: dp_step(assemble, row, noise), DP_TIMED)
+    bucket = torch.zeros(sum(p.numel() for p in m2.parameters()) + 1, device=dev)
+    out["all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce(bucket), DP_TIMED)
+
+    # one dense-DP epoch on the bipartite layout; the DP RMSE against the
+    # single-device RMSE of the same parameters
+    t0 = time.perf_counter()
+    rmse, state = train_multiple_epochs(
+        train_ds, test_ds, new(), epochs=1, batch_size=BATCH_SIZE, lr=1e-3,
+        lr_decay_factor=0.1, lr_decay_step_size=50, ARR=0.001, seed=1,
+        batch_mode="dense", dense_layout="bipartite", mesh=mesh)
+    torch.cuda.synchronize()
+    out["epoch_s"] = time.perf_counter() - t0
+    out["dp_rmse"] = rmse
+    out["params"] = torch.cat([p.detach().reshape(-1) for p in
+                               state.model.parameters()]).cpu().numpy()
+    if r == 0:
+        test_pass = DensePass.plan(plan_buckets(test_ds, "bipartite"), BATCH_SIZE, 8, dev)
+        out["single_rmse"] = dense_eval_rmse(make_eval_step(state.model.eval()),
+                                             DeviceDataset(test_ds.packed, dev), test_pass)
+        if abs(out["single_rmse"] - rmse) > 1e-5:
+            fail(f"the DP test RMSE {rmse} != the single-device RMSE "
+                 f"{out['single_rmse']} of the same parameters")
+
+    # one flat-DP (segment) step against the single-device step
+    idx = np.arange(BATCH_SIZE)
+    graphs = [train_ds.get(int(i)) for i in idx]
+    nl = pad_ladder(sum(g.num_nodes for g in graphs))
+    el = pad_ladder(sum(g.num_edges for g in graphs), base=128)
+    offs = train_ds.packed.edge_offsets
+    whole = collate(graphs, BATCH_SIZE, nl[-1], el[-1], gids=idx, edge_offsets=offs)
+    part = dp.split_for_devices(graphs, mesh.size, BATCH_SIZE // mesh.size, nl, el,
+                                gids=idx, edge_offsets=offs)[r]
+    m1, m2 = new(), new()
+    l1, _ = make_train_step(m1, make_optimizer(m1.parameters(), 1e-3), 0.001)(
+        whole.to(dev), noise)
+    l2, _ = dp.make_dp_train_step(m2, make_optimizer(m2.parameters(), 1e-3), mesh,
+                                  0.001)(part.to(dev), dp.rank_noise(mesh, noise,
+                                                                      BATCH_SIZE))
+    out["flat_step"] = _compare_steps(f"rank {r}: flat DP step vs single-device",
+                                      (float(l2), _grads(m2)), (float(l1), _grads(m1)))
+
+    # Predictor(mesh=) on the held-out pairs against the single-device one
+    kw = dict(h=1, max_nodes_per_hop=100, batch_size=BATCH_SIZE, backend="native")
+    us, vs = spec["pairs"]
+    pm = Predictor(spec["adj"], spec["class_values"], cfg, checkpoints=spec["ckpts"],
+                   mesh=mesh, **kw)
+    t0 = time.perf_counter()
+    got = pm.predict(us, vs)
+    out["serve_s"] = time.perf_counter() - t0
+    if r == 0:
+        want = Predictor(spec["adj"], spec["class_values"], cfg,
+                         checkpoints=spec["ckpts"], device=str(dev), **kw).predict(us, vs)
+        out["serve_diff"] = float(np.abs(got - want).max())
+        if not out["serve_diff"] <= SERVE_ATOL:
+            fail(f"Predictor(mesh=) differs from Predictor by {out['serve_diff']}")
+
+    # EP on a giant batch: the forward against the flat forward, one train
+    # step per local aggregate, the two within phase 7's tolerances
+    batch = _giant_batch(test_ds, mesh.size)
+    out["ep_err"], out["ep_fwd_ms"], epb, shard = _ep_forward_check(
+        f"rank {r}", new().eval(), batch, mesh)
+    out["comm"] = ep.comm_stats(epb)
+    t0 = time.perf_counter()
+    plans = ep.build_ep_blocked(epb).shard(r, dev)
+    out["blocked_plan_s"] = time.perf_counter() - t0
+    steps = {}
+    for name, pl in (("segment", None), ("blocked", plans)):
+        m = new()
+        st = ep.make_ep_train_step(m, make_optimizer(m.parameters(), 1e-3), mesh, 0.001)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = st(shard, 7, pl)
+        torch.cuda.synchronize()
+        steps[name] = (float(loss), _grads(m))
+        out[f"ep_{name}_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["ep_step"] = _compare_steps(f"rank {r}: EP step blocked vs segment",
+                                    steps["blocked"], steps["segment"])
+    out["launches"] = {"rgcn_aggregate_fwd": rgcn_aggregate.launches,
+                       "rgcn_aggregate_bwd": rgcn_aggregate_bwd.launches}
+    return out
+
+
+def multi_device_phase(split, cfg, train_ds, test_ds, dense_ckpts, raw_data, work,
+                       smi, reset_counts, read_counts, expect):
+    """Phase 22: the multi-device modes (igmc_torch.parallel) at full width
+    on phase 6 / 10's ML-1M pairs, K1 and K2 launching 0 times: world size 1
+    over NCCL in this process, then two ranks sharing the card over gloo
+    (collectives staged through host memory: their times measure the
+    port, not NVLink scaling), then the CLI with --n-devices 2 and
+    --parallel ep --n-devices 2. Returns the numbers it measured."""
+    from dataclasses import replace
+
+    import numpy as np
+    from igmc_torch.batching.dataset import _apply_max_num
+    from igmc_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    seg = replace(cfg, flat_aggregate="segment")
+    (us, vs), _ = _apply_max_num((split.test_u_indices, split.test_v_indices),
+                                 split.test_labels, MAX_NUM)
+    spec = dict(cfg=seg, train=train_ds, test=test_ds, adj=split.adj_train,
+                class_values=split.class_values, ckpts=dense_ckpts, pairs=(us, vs))
+    reset_counts()
+    w1 = spawn(_world1, 1, "cuda", args=(spec,))[0]
+    read_counts("multi_device")
+    expect("multi_device", "rgcn_aggregate_fwd", 0)
+    expect("multi_device", "rgcn_aggregate_bwd", 0)
+
+    t0 = time.perf_counter()
+    w2 = spawn(_world2, 2, "cuda", args=(spec,))
+    w2_s = time.perf_counter() - t0
+    for r in w2:
+        if r["backend"] != "gloo":
+            fail(f"two ranks on one card ran over {r['backend']}, not gloo")
+        for name, n in r["launches"].items():
+            print(f"[multi] rank {r['rank']}: {name} launches {n} (expected 0)")
+            if n:
+                fail(f"{name} launched {n} times in rank {r['rank']}")
+    if not np.array_equal(w2[0]["params"], w2[1]["params"]):
+        fail("the two ranks' parameters differ after the DP epoch")
+    print(f"[multi] world 2 (gloo, one card): the ranks' {w2[0]['params'].size} "
+          f"parameters are identical bit for bit after the DP epoch "
+          f"({w2[0]['epoch_s']:.2f} s); DP test RMSE {w2[0]['dp_rmse']:.6f}, "
+          f"single-device {w2[0]['single_rmse']:.6f}; Predictor(mesh=) on "
+          f"{len(us)} pairs vs Predictor: max abs diff {w2[0]['serve_diff']:.3e}; "
+          f"the two-rank run took {w2_s:.2f} s", flush=True)
+
+    cli = {}
+    for name, (flags, line) in MULTI_CLI.items():
+        cwd = os.path.join(work, f"multi_cli_{name}")
+        os.makedirs(cwd)
+        cmd = ([sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "ml_100k",
+                "--testing", "--epochs", "1"] + MULTI_CLI_CUT + flags)
+        lines, err, wall = _subprocess(cmd, raw_data, cwd, f"multi cli {name}")
+        if line not in lines:
+            fail(f"the {name} CLI did not print {line!r}")
+        if "2 rank(s) over gloo" not in err:
+            fail(f"the {name} CLI's ranks did not run over gloo")
+        cli[name] = {"rmse": _check_log(cwd, "ml_100k", ["Epoch 1,"],
+                                        f"multi cli {name}")[0], "seconds": wall}
+
+    comm = w2[0]["comm"]
+    out = {
+        "world1": w1,
+        "world2": {k: [r[k] for r in w2] for k in
+                   ("dp_step_ms", "all_reduce_ms", "ep_fwd_ms", "ep_segment_step_ms",
+                    "ep_blocked_step_ms", "epoch_s", "serve_s", "blocked_plan_s",
+                    "dense_step", "flat_step", "ep_step", "ep_err")},
+        "dp_rmse": w2[0]["dp_rmse"], "single_rmse": w2[0]["single_rmse"],
+        "serve_diff": w2[0]["serve_diff"], "comm": comm, "cli": cli,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    print(f"[multi] {smi}: DP step {w1['dp_step_ms']:.4f} ms at world 1 (nccl), "
+          f"{w2[0]['dp_step_ms']:.4f} / {w2[1]['dp_step_ms']:.4f} ms at world 2 "
+          f"(gloo, both ranks on this one card: not a scaling figure); all_reduce of "
+          f"the gradient bucket {w1['all_reduce_ms']:.4f} ms (world 1), "
+          f"{w2[0]['all_reduce_ms']:.4f} ms (world 2) per step")
+    print(f"[multi] {smi}: EP forward of {EP_GRAPHS} graphs {w1['ep_fwd_ms']:.3f} ms "
+          f"(world 1), {w2[0]['ep_fwd_ms']:.3f} ms (world 2); halo exchange "
+          f"{comm['halo_bytes_per_layer']} bytes per layer vs all_gather "
+          f"{comm['allgather_bytes_per_layer']} bytes "
+          f"({comm['halo_rows_per_pair']} vs {comm['local_nodes']} rows per pair; "
+          f"{comm['reduction_x']}x fewer bytes over all layers and the readout)")
+    print(f"[multi] {smi}: phase seconds {out['seconds']:.2f}", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--raw-data", default=os.environ.get("IGMC_RAW_DATA")
@@ -2621,6 +2988,12 @@ def main() -> None:
                                       args.raw_data, work, reset_counts, read_counts,
                                       expect)
 
+        # ---- 22. several devices ------------------------------------------------
+        with phase("multi-device"):
+            multi = multi_device_phase(split, cfg, train_ds, test_ds, dense_ckpts,
+                                       args.raw_data, work, smi, reset_counts,
+                                       read_counts, expect)
+
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
@@ -2655,6 +3028,7 @@ def main() -> None:
     print(f"[monti] numbers: {json.dumps(monti)}")
     print(f"[families] numbers: {json.dumps(families)}")
     print(f"[flat] numbers: {json.dumps(flat)}")
+    print(f"[multi] numbers: {json.dumps(multi)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,7 +13,9 @@ kernel or raises.
 Ported so far: training, evaluation and serving on the dense slot layout
 (float32 or bfloat16; edge, adjacency and relation-slotted strategies,
 edge-k as an alias of edge; giant batches) and on the flat layout with the fused R-GCN
-aggregate kernels, the MovieLens datasets, and the CLIs (README.md).
+aggregate kernels, the MovieLens datasets, and the CLIs (README.md), on
+one device or several (parallel/: data parallel and edge-partitioned,
+one process per device over torch.distributed).
 """
 
 from .device import resolve_device

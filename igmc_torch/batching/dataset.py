@@ -26,8 +26,9 @@ Port of igmc_tpu/batching/dataset.py:
     batches (`batch_mode="dense"`) are unified slot batches with per-graph
     slot ladders and edge ids for the dense edge dropout. No superbatches
     (the JAX package pads a training superbatch to the ladder maximum and
-    scans it; here each batch is one step, in the same order) or data
-    parallelism.
+    scans it; here each batch is one step, in the same order). Data
+    parallelism (`n_devices`, `rank`): each rank's loader yields its
+    sub-batch of every global batch (parallel/dp.py).
 
 `max_num` subsampling draws the reference's permutation of
 np.random.seed(123), from a private RandomState(123).
@@ -358,11 +359,33 @@ class BatchLoader:
     the consumer's thread. The batches are the same either way.
     `pin_memory` puts every batch's tensors in page-locked memory, so that
     `batch.to(card, non_blocking=True)` copies asynchronously.
+
+    `node_ladder` / `edge_ladder` (both or neither) fix the ladders, e.g.
+    to capacity_ladders of the full dataset on every rank of a multi-host
+    run (parallel/multihost.py).
+
+    `n_devices` D > 1 with `rank` r yields rank r's share of every global
+    batch of batch_size graphs (batch_size must divide by D), as the JAX
+    package's data-parallel loader stacks it: flat, split_for_devices'
+    r-th sub-batch (D sub-batches of batch_size / D graphs in one shared
+    bucket); dense, graphs [r * B/D, (r + 1) * B/D) of the batch's
+    DenseBatch (the JAX package shards its graph axis). Every rank fetches
+    the whole batch to find the shared shape, and runs the same number of
+    batches in the same order (the last may leave a rank only padding
+    graphs).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, prefetch: int = 2, batch_mode: str = "flat",
-                 pin_memory: bool = False, flat_aggregate: Optional[str] = None):
+                 pin_memory: bool = False, flat_aggregate: Optional[str] = None,
+                 node_ladder: Optional[Sequence[int]] = None,
+                 edge_ladder: Optional[Sequence[int]] = None,
+                 n_devices: int = 0, rank: int = 0):
+        if n_devices > 1 and batch_size % n_devices:
+            raise ValueError(
+                f"batch_size {batch_size} must divide by n_devices {n_devices}")
+        if not 0 <= rank < max(n_devices, 1):
+            raise ValueError(f"rank {rank} outside {max(n_devices, 1)} devices")
         if batch_mode not in ("flat", "dense"):
             raise ValueError(f"unknown batch_mode {batch_mode!r} (flat|dense)")
         if flat_aggregate in ("segment", "auto"):
@@ -372,7 +395,14 @@ class BatchLoader:
                              f"(segment|auto|blocked|pallas)")
         if batch_mode == "dense" and flat_aggregate is not None:
             raise ValueError("batch_mode='dense' conflicts with flat_aggregate")
+        if flat_aggregate is not None and n_devices > 1:
+            raise ValueError(f"flat_aggregate={flat_aggregate!r} is a single-device "
+                             f"path (DP sub-batches carry no plans)")
+        if (node_ladder is None) != (edge_ladder is None):
+            raise ValueError("pass both node_ladder and edge_ladder, or neither")
         self.flat_aggregate = flat_aggregate
+        self.n_devices = n_devices
+        self.rank = rank
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -383,7 +413,9 @@ class BatchLoader:
         self.epoch = 0
         self.ladder_overflows = 0
         self._ladder_lock = threading.Lock()   # prefetch threads extend ladders
-        self.node_ladder, self.edge_ladder = self._estimate_ladders()
+        if node_ladder is None:
+            node_ladder, edge_ladder = self._estimate_ladders()
+        self.node_ladder, self.edge_ladder = list(node_ladder), list(edge_ladder)
 
     def _estimate_ladders(self):
         ds = self.dataset
@@ -477,12 +509,30 @@ class BatchLoader:
                                     for a in plan_t[:6] + plan_t[7:])
         return batch
 
+    def _make_batch_dp(self, graphs, idxs):
+        """This rank's sub-batch of the global batch of `graphs`."""
+        from ..parallel.dp import split_for_devices
+
+        D, per = self.n_devices, self.batch_size // self.n_devices
+        if self.batch_mode == "dense":
+            whole = self._make_batch_dense(graphs, idxs)
+            return whole.graphs(self.rank * per, (self.rank + 1) * per)
+        packed = getattr(self.dataset, "packed", None)
+        return split_for_devices(
+            graphs, D, per, self.node_ladder, self.edge_ladder, gids=idxs,
+            edge_offsets=None if packed is None else packed.edge_offsets)[self.rank]
+
     def make_batch(self, idxs: np.ndarray):
-        """The batch of dataset indices `idxs`."""
+        """The batch of dataset indices `idxs` (this rank's sub-batch of it
+        with n_devices > 1)."""
         idxs = np.asarray(idxs, dtype=np.int64)
         graphs = self._fetch(idxs)
-        batch = (self._make_batch_dense(graphs, idxs) if self.batch_mode == "dense"
-                 else self._make_batch_flat(graphs, idxs))
+        if self.n_devices > 1:
+            batch = self._make_batch_dp(graphs, idxs)
+        elif self.batch_mode == "dense":
+            batch = self._make_batch_dense(graphs, idxs)
+        else:
+            batch = self._make_batch_flat(graphs, idxs)
         if self.pin_memory:
             batch = _map_tensors(batch, torch.Tensor.pin_memory)
         return batch

@@ -1,4 +1,4 @@
-"""The command line for experiments: the JAX package's flags, one device.
+"""The command line for experiments: the JAX package's flags.
 
     python -m igmc_torch.cli.main --data-name ml_1m --testing --ensemble \
         [--device cuda|cpu] [...]
@@ -32,16 +32,30 @@ blocked engine and `--flat-aggregate pallas` the fused aggregate kernels
 segment` and `auto` select no flat engine, so without `--batch-mode flat`
 the dense layout runs, as in the JAX CLI.
 
-Flags whose code is not ported yet exit with a message naming the flag:
-`--parallel ep`, `--n-devices` > 1 and `--visualize` (it draws with
-matplotlib). `--compilation-cache-dir` and `--ep-local-aggregate` are
-accepted and change nothing here (the port compiles no XLA programs, and
-the other selects the engine of a path not ported).
+Several devices: `--n-devices N` (N > 1) trains data-parallel and
+`--parallel ep` edge-partitioned (`--ep-local-aggregate segment|blocked`),
+dispatched as the JAX CLI does (`--parallel auto` is dp; the auto batch
+mode is flat when --batch-size does not divide by N), with its exits on
+`--parallel ep` with another model than igmc, with `--dense-chunk` or with
+`--dense-layout`. The CLI starts its N ranks itself (parallel/mesh.py
+spawn: one process per device, gloo on the CPU or when ranks share a card,
+nccl when each has its own), or joins the group torchrun made
+(`torchrun --nnodes H --nproc-per-node G -m igmc_torch.cli.main
+--n-devices H*G ...`). Every rank reads the data (rank 0 first, so that
+it alone writes the caches); rank 0 alone prints and writes log.txt and
+the checkpoints. After data-parallel training the ensemble or transfer
+evaluation runs on rank 0's device, as in the JAX CLI; after
+edge-partitioned training it runs through test_once_ep on every rank.
+
+The one flag whose code is not ported yet exits with a message naming it:
+`--visualize` (it draws with matplotlib). `--compilation-cache-dir` is
+accepted and changes nothing here (the port compiles no XLA programs).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import shutil
@@ -187,11 +201,31 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args) -> list:
     """The given flags whose code igmc_torch does not have yet."""
     checks = [
-        (args.parallel == "ep", "--parallel ep"),
-        (args.n_devices > 1, f"--n-devices {args.n_devices}"),
         (args.visualize, "--visualize (it draws with matplotlib)"),
     ]
     return [flag for hit, flag in checks if hit]
+
+
+def parallel_mode(args) -> str:
+    """'dp' or 'ep' (--parallel auto is dp, as in the JAX CLI)."""
+    return "dp" if args.parallel == "auto" else args.parallel
+
+
+def check_ep(args) -> None:
+    """The JAX CLI's exits under --parallel ep, in its order."""
+    if args.model != "igmc":
+        raise SystemExit("--parallel ep implements the IGMC model "
+                         "(see parallel/ep.py); use --model igmc")
+    if args.dense_chunk:
+        raise SystemExit("--dense-chunk is the single-device "
+                         "giant-batch path; under --parallel ep the "
+                         "giant batch is already edge-partitioned "
+                         "across devices — drop --dense-chunk")
+    if args.dense_layout != "auto":
+        raise SystemExit("--dense-layout applies to the dense batch "
+                         "layout; --parallel ep uses the "
+                         "edge-partitioned layout — drop "
+                         "--dense-layout")
 
 
 def rating_maps(args):
@@ -370,9 +404,7 @@ def dynamic_data(args) -> bool:
 
 
 def check_dense_chunk(args, batch_mode: str) -> None:
-    """The JAX CLI's exits on --dense-chunk, in its order. Its exit on
-    --dense-chunk with --n-devices > 1 has no counterpart: unported_flags
-    refuses that flag first."""
+    """The JAX CLI's exits on --dense-chunk, in its order."""
     if not args.dense_chunk:
         return
     if args.dense_chunk < 1:
@@ -385,6 +417,11 @@ def check_dense_chunk(args, batch_mode: str) -> None:
     if dynamic_data(args):
         raise SystemExit("--dense-chunk needs static (packed) datasets "
                          "— drop the --dynamic-* flags")
+    if args.n_devices > 1:
+        raise SystemExit("--dense-chunk is single-device; for "
+                         "multi-chip giant batches use --parallel ep "
+                         "or dense DP (--n-devices without "
+                         "--dense-chunk)")
     if args.dense_chunk < args.batch_size and args.batch_size % args.dense_chunk:
         raise SystemExit(f"--dense-chunk ({args.dense_chunk}) must "
                          f"divide --batch-size ({args.batch_size})")
@@ -413,7 +450,10 @@ def choose_layouts(args, train_graphs):
         batch_mode = "dense"
         print("batch mode: dense (--dense-chunk)")
     elif batch_mode == "auto":
-        batch_mode = "dense"
+        # data parallelism needs a batch that splits evenly over the
+        # devices on the dense layout; else the flat one, as in the JAX CLI
+        dp_ok = args.n_devices <= 1 or args.batch_size % args.n_devices == 0
+        batch_mode = "dense" if dp_ok else "flat"
         print(f"batch mode: {batch_mode} (auto)")
     check_dense_chunk(args, batch_mode)
     adjacency = args.dense_strategy == "adjacency"
@@ -449,14 +489,44 @@ def main(argv=None):
     missing = unported_flags(args)
     if missing:
         raise SystemExit(f"{', '.join(missing)}: not ported to igmc_torch yet")
+    if parallel_mode(args) == "ep":
+        check_ep(args)
+    from ..device import resolve_device
+
+    resolve_device(args.device)       # raises without a card unless --device cpu
+    if parallel_mode(args) == "ep" or args.n_devices > 1:
+        from ..parallel import spawn
+
+        spawn(_rank_main, max(args.n_devices, 1), args.device, args=(args,))
+        return
+    run(args)
+
+
+def _rank_main(mesh, args) -> None:
+    """One rank of a multi-device run: rank 0 prints, the others are
+    silent."""
+    if mesh.rank == 0:
+        run(args, mesh)
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        run(args, mesh)
+
+
+def run(args, mesh=None) -> None:
+    """The CLI's work after parsing: on one device, or as one rank of
+    `mesh` (parallel/mesh.py)."""
     from ..device import resolve_device
     from ..train import (load_checkpoint, resolve_checkpoint, test_once,
-                         train_multiple_epochs)
+                         test_once_ep, train_multiple_epochs,
+                         train_multiple_epochs_ep)
     from ..utils import ResultsDir, make_logger, seed_everything
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     seed_everything(args.seed)
     print(args)
+    if not lead:
+        mesh.barrier()      # rank 0 writes the split pickle and the caches first
 
     rating_map, post_rating_map = rating_maps(args)
     split = load_split(args, rating_map, post_rating_map)
@@ -464,15 +534,56 @@ def main(argv=None):
     print(split.class_values)
 
     res = ResultsDir("results", args.data_name, args.save_appendix, args.testing)
-    res.record_cmd()
-    if not args.keep_old and not args.transfer:
-        res.snapshot_source()
+    if lead:
+        res.record_cmd()
+        if not args.keep_old and not args.transfer:
+            res.snapshot_source()
 
     train_graphs, _, test_graphs, n_features = build_datasets(args, split)
+    if lead and mesh is not None:
+        mesh.barrier()
     model = build_model(args, split, n_features, train_graphs)
     logger = make_logger(res, args.save_interval)
+    ckpt_dir = args.transfer if args.transfer else res.path
+
+    if parallel_mode(args) == "ep":
+        print(f"Edge-partitioned training over {mesh.size} devices")
+        if not args.no_train:
+            train_multiple_epochs_ep(
+                train_graphs, test_graphs, model, mesh, epochs=args.epochs,
+                batch_size=args.batch_size, lr=args.lr,
+                lr_decay_factor=args.lr_decay_factor,
+                lr_decay_step_size=args.lr_decay_step_size, weight_decay=0.0,
+                ARR=args.ARR, test_freq=args.test_freq, logger=logger,
+                continue_from=args.continue_from, res_dir=res.path,
+                seed=args.seed, profile_dir=args.profile_dir or None,
+                local_aggregate=args.ep_local_aggregate)
+        if args.ensemble:
+            se, ee, iv = ensemble_range(args)
+            checkpoints = [resolve_checkpoint(ckpt_dir, "model", x)
+                           for x in range(se, ee + 1, iv)
+                           if os.path.isfile(resolve_checkpoint(ckpt_dir, "model", x))]
+            rmse = test_once_ep(test_graphs, model, args.batch_size, mesh,
+                                ensemble=True, checkpoints=checkpoints)
+            print("Ensemble test rmse is: {:.6f}".format(rmse))
+            epoch_info = "ensemble of range({}, {}, {})".format(se, ee, iv)
+        elif args.transfer:
+            params = load_checkpoint(resolve_checkpoint(ckpt_dir, "model", args.epochs))
+            rmse = test_once_ep(test_graphs, model, args.batch_size, mesh,
+                                params=params)
+            print("Test rmse is: {:.6f}".format(rmse))
+            epoch_info = "transfer {}, epochs {}".format(args.transfer, args.epochs)
+        else:
+            return
+        if lead:
+            res.log_line("Epoch {}, train loss {:.4f}, test rmse {:.6f}".format(
+                epoch_info, 0, rmse))
+        return
+
     batch_mode, flat_aggregate, dense_layout = choose_layouts(args, train_graphs)
-    if args.n_devices == 1:
+    if args.n_devices > 1:
+        print(f"Data-parallel training over {args.n_devices} devices")
+    elif args.n_devices == 1:
         print("--n-devices 1: single device, using the plain training path")
     if not args.no_train:
         train_multiple_epochs(
@@ -482,20 +593,18 @@ def main(argv=None):
             lr_decay_step_size=args.lr_decay_step_size, weight_decay=0.0,
             ARR=args.ARR, test_freq=args.test_freq, logger=logger,
             continue_from=args.continue_from, res_dir=res.path, seed=args.seed,
-            superbatch=args.superbatch, batch_mode=batch_mode,
+            superbatch=args.superbatch, mesh=mesh, batch_mode=batch_mode,
             dense_buckets=args.dense_buckets, flat_aggregate=flat_aggregate,
             dense_chunk=args.dense_chunk, dense_layout=dense_layout,
             profile_dir=args.profile_dir or None, device=device)
+    if not lead:
+        return      # the evaluation below runs on one device, rank 0's
 
-    ckpt_dir = args.transfer if args.transfer else res.path
     eval_kw = dict(batch_mode=batch_mode, flat_aggregate=flat_aggregate,
                    dense_chunk=args.dense_chunk, dense_layout=dense_layout,
                    device=device)
     if args.ensemble:
-        if args.data_name == "ml_1m":
-            start_epoch, end_epoch, interval = args.epochs - 15, args.epochs, 5
-        else:
-            start_epoch, end_epoch, interval = args.epochs - 30, args.epochs, 10
+        start_epoch, end_epoch, interval = ensemble_range(args)
         checkpoints = [resolve_checkpoint(ckpt_dir, "model", x)
                        for x in range(start_epoch, end_epoch + 1, interval)]
         # ensemble whatever was saved in the range (--save-interval may skip
@@ -531,6 +640,15 @@ def main(argv=None):
 
     res.log_line("Epoch {}, train loss {:.4f}, test rmse {:.6f}".format(
         epoch_info, 0, rmse))
+
+
+def ensemble_range(args):
+    """(start, end, interval) of the ensemble's checkpoint epochs, the
+    reference's: every 5 of the last 15 epochs for ml_1m, every 10 of the
+    last 30 otherwise."""
+    if args.data_name == "ml_1m":
+        return args.epochs - 15, args.epochs, 5
+    return args.epochs - 30, args.epochs, 10
 
 
 if __name__ == "__main__":

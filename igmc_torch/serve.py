@@ -22,7 +22,10 @@ Divergences by design from the JAX Predictor: the port compiles no
 program per shape, so the packed tables are not padded to a capacity
 ladder (`_cap` / `_pad_packed` keep XLA's cache keys steady there); the
 members of an ensemble run one after another per batch on the card and
-are averaged there; a data-parallel `mesh` is not ported (P15).
+are averaged there. With a `mesh` (parallel/mesh.py, one process per
+device) every rank scores its B/D graphs of each batch and one all_gather
+at the end gives every rank the whole array (the JAX Predictor shards the
+gid block's graph axis over 'data').
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from .graphs.csr import BipartiteCSR
 from .graphs.native import resolve_backend
 from .models.igmc import IGMC
 from .train.checkpoints import load_checkpoint, resolve_checkpoint
+from .parallel.dp import rank_columns
 from .train.loop import DensePass
 
 
@@ -65,10 +69,13 @@ class Predictor:
     u_features / v_features : side-feature matrices when cfg.side_features.
     slot_ladder : optional list of (node_slot, edge_slot) pairs to bucket
         queries into; default derives the buckets of each call's subgraphs.
-    mesh : not ported (data-parallel serving waits for P15); must be None.
+    mesh : a parallel.mesh.Mesh for data-parallel serving (every rank of
+        the group calls predict with the same pairs); batch_size must divide
+        by its size. The predictor then runs on the mesh's device.
     compilation_cache_dir : accepted and unused: the port compiles no
         programs per shape (its kernels build once per source).
-    device : "cuda" (default; raises without a card) or "cpu".
+    device : "cuda" (default; raises without a card) or "cpu"; ignored
+        with a mesh.
     """
 
     def __init__(self, adj, class_values, cfg, checkpoints=None,
@@ -81,11 +88,12 @@ class Predictor:
                  device="cuda"):
         if (checkpoints is None) == (params is None):
             raise ValueError("pass exactly one of checkpoints / params")
-        if mesh is not None:
-            raise NotImplementedError(
-                "igmc_torch Predictor: data-parallel serving (mesh=) is not "
-                "ported yet (P15, the multi-device modes)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and int(batch_size) % mesh.size:
+            raise ValueError(
+                f"batch_size ({int(batch_size)}) must divide by the mesh "
+                f"size ({mesh.size})")
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.adj = adj.tocsr()
         self._csr = BipartiteCSR(self.adj)
         self.class_values = np.asarray(class_values)
@@ -173,7 +181,9 @@ class Predictor:
         """Ensemble-mean ratings of a packed dataset's graphs, in its order
         (the device half of `predict`): the tables are uploaded once, each
         batch is assembled on the card, every member scores it there and
-        the mean is scattered into place; one fetch at the end."""
+        the mean is scattered into place; one fetch at the end. With a mesh
+        each rank scores its columns of every row, and the rows' means are
+        all-gathered once."""
         G = len(ds)
         if G == 0:
             return np.zeros(0, np.float32)
@@ -181,9 +191,19 @@ class Predictor:
         # rows of plan_dense_epoch's [K, B] blocks in order: K only pads
         # with all-(-1) rows, which a DensePass drops
         rows = DensePass.plan(self._buckets(ds), self.batch_size, 1, self.device)
+        cols = (slice(None) if self.mesh is None
+                else rank_columns(self.mesh, self.batch_size))
+        means = [torch.stack([m(batch) for m in self._members]).mean(0)
+                 for batch in rows.batches(dd, cols=cols)]
+        if self.mesh is not None:
+            # [D * S, B/D] in rank order -> [S, B]: row i is rank 0's
+            # columns of row i, then rank 1's, ...
+            S = len(means)
+            every = self.mesh.all_gather(torch.stack(means))
+            means = list(every.reshape(self.mesh.size, S, -1).transpose(0, 1)
+                         .reshape(S, -1))
         preds = torch.full((G + 1,), float("nan"), device=self.device)
-        for gids, batch in zip(rows.gids, rows.batches(dd)):
-            mean = torch.stack([m(batch) for m in self._members]).mean(0)
+        for gids, mean in zip(rows.gids, means):
             preds.index_copy_(0, torch.where(gids >= 0, gids, G), mean)
         return preds[:G].cpu().numpy()
 

@@ -34,10 +34,23 @@ ARR over its R-GCN layers), in two layouts:
     the plans are built on the loader's prefetch threads. The loop sets
     the IGMC copy's cfg.flat_aggregate to the engine it runs.
 
-Meshes are not ported yet and raise. Sums stay on the device across
-batches and steps, an epoch's graph ids and noise masks are uploaded at
-once (device-resident datasets), and each epoch's train loss and each RMSE
-cost one host sync.
+Several devices (`mesh`, parallel/mesh.py: one process per device over
+torch.distributed; the JAX package's mesh branches): the dense layout runs
+data-parallel device-resident (every rank holds the packed datasets and
+plans the same epoch; rank r assembles columns [r * B/D, (r + 1) * B/D) of
+each gid row) or host-collated for dynamic data (BatchLoader(n_devices=D,
+rank=r)); the flat layout runs data-parallel on the segment engine,
+host-collated with the loader's n_devices split. The gradients are summed
+with one all_reduce per step (parallel/dp.py); a rank takes its rows of
+the whole batch's noise, so a DP step is the single-device step on the
+whole batch, dropout included. Rank 0 alone prints, calls `logger` and so
+writes checkpoints; every rank waits at a barrier before loading one and
+after the last epoch. train_multiple_epochs_ep and test_once_ep run the
+edge-partitioned giant batches of parallel/ep.py.
+
+Sums stay on the device across batches and steps, an epoch's graph ids and
+noise masks are uploaded at once (device-resident datasets), and each
+epoch's train loss and each RMSE cost one host sync.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from ..batching.device_data import (DeviceDataset, assemble_batch, assemble_dens
                                    capacity_bound, live_rows, plan_gid_epoch)
 from ..device import resolve_device
 from ..models.igmc import IGMC, arr_regularizer, draw_noise, slice_noise
+from ..parallel.dp import make_dp_train_step, rank_columns, rank_noise
 from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
 
 
@@ -135,6 +149,22 @@ def make_dense_row_step(model, optimizer, chunk: int = 0,
     return lambda assemble, gids, noise: whole(assemble(gids), noise)
 
 
+def make_dp_row_step(model, optimizer, mesh, ARR: float = 0.0) -> Callable:
+    """make_dense_row_step's data-parallel form: (assemble, gids, noise)
+    -> (loss, n) with `gids` and `noise` the whole row's; this rank
+    assembles and runs its columns (rank_columns), the row's graph count
+    is read off `gids`, and the gradients are summed over the ranks
+    (make_dp_train_step)."""
+    step = make_dp_train_step(model, optimizer, mesh, ARR)
+
+    def row_step(assemble, gids, noise):
+        cols = rank_columns(mesh, gids.shape[0])
+        return step(assemble(gids[cols]), slice_noise(noise, cols.start, cols.stop),
+                    n=(gids >= 0).sum().float())
+
+    return row_step
+
+
 def make_chunked_dense_train_step(model, optimizer, chunk: int,
                                   ARR: float = 0.0) -> Callable:
     """(assemble, gids, noise) -> (loss, n) for a giant-batch row: the row's
@@ -189,16 +219,21 @@ class _Timed:
 
 
 def train_epoch(step_fn: Callable, loader, generator: torch.Generator,
-                dataset_size: int, device) -> float:
+                dataset_size: int, device, mesh=None) -> float:
     """One pass over the training data, one step per batch with noise from
     `generator` (draw_noise); returns sum(loss * n) / dataset_size. The sum
     stays on the device: the one float() at the end is the epoch's only
-    host sync."""
+    host sync. With a `mesh` the loader yields this rank's sub-batches: the
+    whole batch's noise is drawn and the rank takes its rows
+    (rank_noise)."""
     total = None
+    D = 1 if mesh is None else mesh.size
     for batch in loader:
         batch = batch.to(device, non_blocking=True)
-        seed, keep = draw_noise(generator, batch.num_graphs)
-        loss, n = step_fn(batch, (seed, keep.to(device)))
+        noise = draw_noise(generator, batch.num_graphs * D)
+        if mesh is not None:
+            noise = rank_noise(mesh, noise, batch.num_graphs * D)
+        loss, n = step_fn(batch, (noise[0], noise[1].to(device)))
         total = loss * n if total is None else total + loss * n
     if total is None:
         return 0.0
@@ -226,16 +261,25 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
     return step
 
 
-def eval_rmse(eval_fn: Callable, loader: BatchLoader, device) -> float:
-    """RMSE over a loader; device-side accumulation, one host sync."""
+def _rmse(sse, cnt, mesh=None) -> float:
+    """sqrt(sse / cnt) of device sums (0.0 for none); with a `mesh` the
+    ranks' sums are all-reduced first."""
+    if sse is None:
+        return 0.0
+    if mesh is not None:
+        sse, cnt = mesh.all_reduce(torch.stack([sse, cnt]))
+    return math.sqrt(float(sse) / max(float(cnt), 1.0))
+
+
+def eval_rmse(eval_fn: Callable, loader: BatchLoader, device, mesh=None) -> float:
+    """RMSE over a loader; device-side accumulation, one host sync (with a
+    `mesh`, over every rank's sub-batches: one all_reduce at the end)."""
     sse = cnt = None
     for batch in loader:
         s, c, _ = eval_fn(batch.to(device, non_blocking=True))
         sse = s if sse is None else sse + s
         cnt = c if cnt is None else cnt + c
-    if sse is None:
-        return 0.0
-    return math.sqrt(float(sse) / max(float(cnt), 1.0))
+    return _rmse(sse, cnt, mesh)
 
 
 def predict_all(eval_fn: Callable, loader: BatchLoader, device):
@@ -332,10 +376,12 @@ class DensePass:
         return assemble_dense(dd, gids, b.node_slot, edge_slot, b.num_u_slot,
                               rel_caps)
 
-    def batches(self, dd: DeviceDataset, rel_caps: Optional[tuple] = None):
-        """The pass's DenseBatches, assembled on dd's device in order."""
+    def batches(self, dd: DeviceDataset, rel_caps: Optional[tuple] = None,
+                cols: slice = slice(None)):
+        """The pass's DenseBatches, assembled on dd's device in order (of
+        each row's graphs `cols` only)."""
         for i, bi in enumerate(self.bucket_of):
-            yield self.assemble(dd, bi, self.gids[i], rel_caps)
+            yield self.assemble(dd, bi, self.gids[i][cols], rel_caps)
 
 
 @dataclass
@@ -374,9 +420,10 @@ class FlatPass:
         DensePass's, unused)."""
         return assemble_batch(dd, gids, self.node_pad, self.edge_pad)
 
-    def batches(self, dd: DeviceDataset, rel_caps: Optional[tuple] = None):
+    def batches(self, dd: DeviceDataset, rel_caps: Optional[tuple] = None,
+                cols: slice = slice(None)):
         for gids in self.gids:
-            yield self.assemble(dd, 0, gids)
+            yield self.assemble(dd, 0, gids[cols])
 
 
 def dense_train_epoch(step_fn: Callable, dd: DeviceDataset, epoch: DensePass,
@@ -400,16 +447,17 @@ def dense_train_epoch(step_fn: Callable, dd: DeviceDataset, epoch: DensePass,
 
 
 def dense_eval_rmse(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
-                    rel_caps: Optional[tuple] = None) -> float:
-    """RMSE over a DensePass or FlatPass; device-side sums, one host sync."""
+                    rel_caps: Optional[tuple] = None, mesh=None) -> float:
+    """RMSE over a DensePass or FlatPass; device-side sums, one host sync.
+    With a `mesh` each rank evaluates its columns of every row and the sums
+    are all-reduced once."""
+    cols = slice(None) if mesh is None else rank_columns(mesh, epoch.gids.shape[1])
     sse = cnt = None
-    for batch in epoch.batches(dd, rel_caps):
+    for batch in epoch.batches(dd, rel_caps, cols):
         s, c, _ = eval_fn(batch)
         sse = s if sse is None else sse + s
         cnt = c if cnt is None else cnt + c
-    if sse is None:
-        return 0.0
-    return math.sqrt(float(sse) / max(float(cnt), 1.0))
+    return _rmse(sse, cnt, mesh)
 
 
 def dense_predict_all(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
@@ -633,20 +681,36 @@ def train_multiple_epochs(
     torch.profiler Chrome trace of the training pass of epoch start + 1
     there (the first epoch after the one that builds and warms up). Runs on
     `device` (default "cuda"; raises without a CUDA device unless
-    device="cpu"). Meshes raise NotImplementedError."""
+    device="cpu").
+
+    `mesh` (parallel/mesh.py, this process's rank; `device` is then the
+    mesh's) trains data-parallel, as the module docstring says, with the
+    JAX package's refusals: a flat engine other than the segment one,
+    `dense_chunk`, and a batch_size that does not divide by the mesh size.
+    The returned TrainState is the same on every rank."""
     flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
     engine = _check_layout(batch_mode, flat_aggregate)
     if batch_mode == "dense" and flat_aggregate is not None:
         raise ValueError("flat_aggregate applies to batch_mode='flat'")
-    if mesh is not None:
-        raise NotImplementedError("igmc_torch training: mesh is not ported")
+    if mesh is not None and flat_aggregate is not None:
+        raise ValueError("flat_aggregate is a single-device path")
+    D = 1 if mesh is None else mesh.size
     # a dataset without packed arrays to keep on the device (dynamic data)
     # runs the dense layout host-collated, both sets then
     host_dense = batch_mode == "dense" and not (hasattr(train_dataset, "packed")
                                                 and hasattr(test_dataset, "packed"))
+    if mesh is not None and host_dense and batch_size % D:
+        raise ValueError(f"dynamic dense DP needs batch_size ({batch_size}) "
+                         f"divisible by the mesh size ({D})")
     if dense_chunk and (batch_mode != "dense" or host_dense):
         raise ValueError("dense_chunk needs batch_mode='dense' on static "
                          "(packed) datasets")
+    if mesh is not None and batch_mode == "dense" and batch_size % D:
+        raise ValueError(f"dense DP needs batch_size ({batch_size}) divisible by "
+                         f"the mesh size ({D})")
+    if mesh is not None and dense_chunk:
+        raise ValueError("dense_chunk is single-device (use EP or dense-DP for "
+                         "multi-chip giant batches)")
     if host_dense:
         _check_host_layout(dense_layout)
     if dense_chunk >= batch_size:
@@ -654,7 +718,9 @@ def train_multiple_epochs(
     elif dense_chunk and batch_size % dense_chunk:
         raise ValueError(f"dense_chunk ({dense_chunk}) must divide "
                          f"batch_size ({batch_size})")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     model = copy.deepcopy(model).to(dev)
     if batch_mode == "flat":
         model = _flat_model(model, engine)
@@ -662,10 +728,14 @@ def train_multiple_epochs(
     state = TrainState(model=model, optimizer=optimizer)
     packed = hasattr(train_dataset, "packed") and hasattr(test_dataset, "packed")
     flat_resident = (batch_mode == "flat" and engine == "segment" and packed
-                     and superbatch > 1)
+                     and superbatch > 1 and mesh is None)
     device_resident = (batch_mode == "dense" and not host_dense) or flat_resident
-    step_fn = (make_dense_row_step(model, optimizer, dense_chunk, ARR)
-               if device_resident else make_train_step(model, optimizer, ARR))
+    if mesh is not None:
+        step_fn = (make_dp_row_step(model, optimizer, mesh, ARR) if device_resident
+                   else make_dp_train_step(model, optimizer, mesh, ARR))
+    else:
+        step_fn = (make_dense_row_step(model, optimizer, dense_chunk, ARR)
+                   if device_resident else make_train_step(model, optimizer, ARR))
     eval_fn = make_eval_step(model)
     if device_resident:
         K = max(superbatch, 1)
@@ -681,13 +751,17 @@ def train_multiple_epochs(
     else:
         kw = dict(prefetch=prefetch, batch_mode="dense" if host_dense else "flat",
                   pin_memory=dev.type == "cuda",
-                  flat_aggregate=None if host_dense else flat_aggregate)
+                  flat_aggregate=None if host_dense else flat_aggregate,
+                  n_devices=0 if mesh is None else D,
+                  rank=0 if mesh is None else mesh.rank)
         train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
                                    seed=seed, **kw)
         test_loader = BatchLoader(test_dataset, batch_size, **kw)
 
     start_epoch = 1
     if continue_from is not None:
+        if mesh is not None:
+            mesh.barrier()
         model.load_state_dict(load_checkpoint(
             resolve_checkpoint(res_dir, "model", continue_from)))
         optimizer.load_state_dict(load_optimizer_state(
@@ -701,7 +775,7 @@ def train_multiple_epochs(
         t_epoch = time.perf_counter()
         noise_gen = _noise_generator(seed, epoch)
         prof = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
-                else None)
+                and lead else None)
         model.train()
         if device_resident:
             # the JAX package's epoch rng: the same buckets' permutations
@@ -721,16 +795,16 @@ def train_multiple_epochs(
             train_loader.epoch = epoch
             timed_train, timed_test = _Timed(train_loader), _Timed(test_loader)
             train_loss = train_epoch(step_fn, timed_train, noise_gen,
-                                     len(train_dataset), dev)
+                                     len(train_dataset), dev, mesh)
         if prof is not None:
             _stop_profile(prof, dev, profile_dir, epoch)
         model.eval()
         if epoch % test_freq != 0:
             rmses.append(float("nan"))
         elif device_resident:
-            rmses.append(dense_eval_rmse(eval_fn, dd_test, test_pass))
+            rmses.append(dense_eval_rmse(eval_fn, dd_test, test_pass, mesh=mesh))
         else:
-            rmses.append(eval_rmse(eval_fn, timed_test, dev))
+            rmses.append(eval_rmse(eval_fn, timed_test, dev, mesh))
         if not device_resident:
             host_seconds = timed_train.seconds + timed_test.seconds
         state.epoch = epoch
@@ -742,14 +816,175 @@ def train_multiple_epochs(
         msg = "Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values())
         if not device_resident and train_loader.ladder_overflows:
             msg += f" [ladder overflows: {train_loader.ladder_overflows}]"
-        print(msg)
+        say(msg)
         # manual step decay, as the PyTorch reference's train_eval.py does
         if epoch % lr_decay_step_size == 0:
             set_learning_rate(optimizer,
                               lr_decay_factor * get_learning_rate(optimizer))
-        if logger is not None:
+        if logger is not None and lead:
             logger(info, state)
 
+    if mesh is not None:
+        mesh.barrier()          # rank 0's checkpoints are written
     duration = time.perf_counter() - t_start
-    print("Final Test RMSE: {:.6f}, Duration: {:.6f}".format(rmses[-1], duration))
+    say("Final Test RMSE: {:.6f}, Duration: {:.6f}".format(rmses[-1], duration))
     return rmses[-1], state
+
+
+def _ep_shards(dataset, batch_size: int, mesh, local_aggregate: str):
+    """(shards, blocked plans or None, gid chunks) of a dataset's EP giant
+    batches on this rank (build_ep_batches; with local_aggregate 'blocked'
+    the blocked plans, aligned to one block-count shape)."""
+    from ..parallel.ep import (build_ep_batches, build_ep_blocked, ep_shard,
+                               max_ep_blocked_blocks, pad_ep_blocked)
+
+    if local_aggregate not in ("segment", "blocked"):
+        raise ValueError(f"unknown EP local_aggregate {local_aggregate!r}")
+    eps, chunks = build_ep_batches(dataset, batch_size, mesh.size)
+    plans = None
+    if local_aggregate == "blocked":
+        built = [build_ep_blocked(e) for e in eps]
+        if len(built) > 1:
+            targets = max_ep_blocked_blocks(built)
+            built = [pad_ep_blocked(p, targets) for p in built]
+        plans = [p.shard(mesh.rank, mesh.device) for p in built]
+    return [ep_shard(e, mesh.rank, mesh.device) for e in eps], plans, chunks
+
+
+def train_multiple_epochs_ep(
+    train_dataset,
+    test_dataset,
+    model: torch.nn.Module,
+    mesh,
+    epochs: int,
+    batch_size: int,
+    lr: float,
+    lr_decay_factor: float,
+    lr_decay_step_size: int,
+    weight_decay: float = 0.0,
+    ARR: float = 0.0,
+    test_freq: int = 1,
+    logger: Optional[Callable] = None,
+    continue_from: Optional[int] = None,
+    res_dir: Optional[str] = None,
+    seed: int = 1,
+    profile_dir: Optional[str] = None,
+    local_aggregate: str = "segment",
+):
+    """Training under EDGE-PARTITIONED parallelism (parallel/ep.py): every
+    batch of batch_size graphs is ONE giant disjoint batch-graph split over
+    the mesh's ranks. The epochs of train_multiple_epochs (step LR decay,
+    the RMSE every `test_freq` epochs, checkpoint and resume through
+    `logger` and `continue_from`, the reference's log lines), with the EP
+    data handling: the batches are collated and partitioned once (fixed
+    membership; each epoch permutes the visit order), edge dropout is the
+    hash stream of ep_step_seed, and the local aggregate is
+    `local_aggregate` 'segment' or 'blocked'. `model` is an IGMC (a copy is
+    trained, on the mesh's device). Rank 0 alone prints and calls
+    `logger`. Returns (final RMSE, TrainState), the same on every rank."""
+    from ..parallel.ep import ep_eval_sums, ep_train_epoch, make_ep_train_step
+
+    dev = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    model = copy.deepcopy(model).to(dev)
+    optimizer = make_optimizer(model.parameters(), lr, weight_decay)
+    state = TrainState(model=model, optimizer=optimizer)
+    train_shards, train_plans, _ = _ep_shards(train_dataset, batch_size, mesh,
+                                              local_aggregate)
+    test_shards, test_plans, _ = _ep_shards(test_dataset, batch_size, mesh,
+                                            local_aggregate)
+    step_fn = make_ep_train_step(model, optimizer, mesh, ARR)
+
+    start_epoch = 1
+    if continue_from is not None:
+        mesh.barrier()
+        model.load_state_dict(load_checkpoint(
+            resolve_checkpoint(res_dir, "model", continue_from)))
+        optimizer.load_state_dict(load_optimizer_state(
+            resolve_checkpoint(res_dir, "optimizer", continue_from)))
+        start_epoch = continue_from + 1
+        epochs -= continue_from
+
+    rmses = []
+    t_start = time.perf_counter()
+    for epoch in range(start_epoch, epochs + start_epoch):
+        t_epoch = time.perf_counter()
+        prof = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
+                and lead else None)
+        model.train()
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+        total = ep_train_epoch(step_fn, train_shards, seed, epoch, rng, train_plans)
+        if prof is not None:
+            _stop_profile(prof, dev, profile_dir, epoch)
+        model.eval()
+        acc = (ep_eval_sums(model, test_shards, mesh, test_plans)
+               if epoch % test_freq == 0 else None)
+        train_loss = (0.0 if total is None
+                      else float(total) / max(len(train_dataset), 1))
+        if acc is not None:
+            rmses.append(math.sqrt(float(acc[0]) / max(float(acc[1]), 1.0)))
+        else:
+            rmses.append(0.0 if epoch % test_freq == 0 else float("nan"))
+        state.epoch = epoch
+        state.history.append({"epoch": epoch,
+                              "seconds": time.perf_counter() - t_epoch,
+                              "host_seconds": 0.0})
+        info = {"epoch": epoch, "train_loss": train_loss, "test_rmse": rmses[-1]}
+        say("Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values()))
+        if epoch % lr_decay_step_size == 0:
+            set_learning_rate(optimizer,
+                              lr_decay_factor * get_learning_rate(optimizer))
+        if logger is not None and lead:
+            logger(info, state)
+
+    mesh.barrier()              # rank 0's checkpoints are written
+    duration = time.perf_counter() - t_start
+    say("Final Test RMSE: {:.6f}, Duration: {:.6f}".format(rmses[-1], duration))
+    return rmses[-1], state
+
+
+def test_once_ep(
+    test_dataset,
+    model: torch.nn.Module,
+    batch_size: int,
+    mesh,
+    params: Optional[dict] = None,
+    logger: Optional[Callable] = None,
+    ensemble: bool = False,
+    checkpoints=None,
+    local_aggregate: str = "segment",
+):
+    """test_once over EP giant batches on the mesh: `model` (or the
+    state_dict `params` loaded into a copy), or with `ensemble` the
+    prediction mean of `checkpoints`. Every rank returns the RMSE; rank 0
+    alone prints it and calls `logger`."""
+    from ..parallel.ep import ep_eval_sums, ep_predict_all
+
+    lead = mesh.rank == 0
+    shards, plans, chunks = _ep_shards(test_dataset, batch_size, mesh, local_aggregate)
+    model = copy.deepcopy(model).to(mesh.device).eval()
+    t_start = time.perf_counter()
+    if ensemble and checkpoints:
+        ys = np.array([test_dataset.get(i).y for i in range(len(test_dataset))],
+                      np.float32)
+        outs = []
+        for ckpt in checkpoints:
+            model.load_state_dict(load_checkpoint(ckpt))
+            outs.append(ep_predict_all(model, shards, mesh, chunks,
+                                       len(test_dataset), plans))
+        mean_pred = np.stack(outs, axis=1).mean(axis=1)
+        rmse = math.sqrt(float(np.mean((mean_pred - ys) ** 2)))
+    else:
+        if params is not None:
+            model.load_state_dict(params)
+        acc = ep_eval_sums(model, shards, mesh, plans)
+        rmse = (0.0 if acc is None
+                else math.sqrt(float(acc[0]) / max(float(acc[1]), 1.0)))
+    duration = time.perf_counter() - t_start
+    if lead:
+        print("Test Once RMSE: {:.6f}, Duration: {:.6f}".format(rmse, duration))
+        if logger is not None:
+            epoch_info = "test_once" if not ensemble else "ensemble"
+            logger({"epoch": epoch_info, "train_loss": 0, "test_rmse": rmse}, None)
+    return rmse

@@ -4,9 +4,11 @@ cpu): the same `batch mode` and `dense layout` lines under each layout
 rule (dynamic data included), a training run with --ensemble writing
 log.txt in the same format with RMSEs in a stated band, the files of a
 results directory, every unported flag refused by name, the flat engines
-(segment, blocked, DGCNN's flat form) trained through the CLI, and
+(segment, blocked, DGCNN's flat form) trained through the CLI,
 ml_100k's official split with side features trained by both CLIs to RMSEs
-in a stated band. The main path's
+in a stated band, and the multi-device modes (--n-devices, --parallel ep,
+--ep-local-aggregate) trained through the CLI on two CPU ranks, with the
+JAX CLI's exits. The main path's
 options (--compute-dtype, --dense-chunk, --dense-strategy, --flat-aggregate
 segment) are in test_torch_port_options.py."""
 
@@ -20,8 +22,8 @@ import torch
 from igmc_tpu.cli.main import main as jax_main
 from igmc_tpu.data.synthetic import write_ml1m_format, write_ml100k_format
 
-from igmc_torch.cli.main import (build_parser, choose_layouts, main as port_main,
-                                 unported_flags)
+from igmc_torch.cli.main import (build_parser, check_ep, choose_layouts,
+                                 main as port_main, parallel_mode, unported_flags)
 
 torch.set_num_threads(1)
 
@@ -115,40 +117,46 @@ def test_training_run_matches_jax_cli(raw, tmp_path, monkeypatch, capsys):
         assert "Ensemble test rmse is: " + logs[w][-1].split()[-1] in outs[w]
 
 
-# flags of the flat engines, refused until they were ported: they pass
-# unported_flags and choose the JAX CLI's (layout, engine), or exit with
-# its own message
+# flags of the flat engines and the multi-device modes, refused until they
+# were ported: they pass unported_flags and choose the JAX CLI's (layout,
+# engine), or the edge-partitioned path ("ep"), or exit with its own
+# message (--batch-size 25 does not split over 2, 4 or 8 devices, so the
+# auto batch mode under --n-devices is flat, as in the JAX CLI)
 PORTED = "ported: "
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--parallel", "ep"], "--parallel ep"),
-    (["--n-devices", "2"], "--n-devices 2"),
-    (["--dynamic-train", "--parallel", "ep"], "--parallel ep"),
+    (["--parallel", "ep"], PORTED + "ep"),
+    (["--n-devices", "2"], PORTED + "flat segment"),
+    (["--dynamic-train", "--parallel", "ep"], PORTED + "ep"),
     (["--dynamic-dataset", "--visualize"], "--visualize (it draws with matplotlib)"),
-    (["--model", "dgcnn", "--parallel", "ep"], "--parallel ep"),
+    (["--model", "dgcnn", "--parallel", "ep"],
+     PORTED + "--parallel ep implements the IGMC model"),
     (["--batch-mode", "flat", "--flat-aggregate", "segment"], PORTED + "flat segment"),
     (["--dynamic-test", "--model", "gnn", "--visualize"],
      "--visualize (it draws with matplotlib)"),
-    (["--dense-chunk", "10", "--parallel", "ep"], "--parallel ep"),
+    (["--dense-chunk", "10", "--parallel", "ep"],
+     PORTED + "--dense-chunk is the single-device giant-batch path"),
     (["--visualize"], "--visualize (it draws with matplotlib)"),
     (["--profile-dir", "p", "--flat-aggregate", "blocked"], PORTED + "flat blocked"),
-    (["--dynamic-val", "--n-devices", "4"], "--n-devices 4"),
+    (["--dynamic-val", "--n-devices", "4"], PORTED + "flat segment"),
     (["--model", "gnn", "--batch-mode", "flat"], PORTED + "flat segment"),
-    (["--model", "dgcnn_rs", "--n-devices", "2"], "--n-devices 2"),
-    (["--n-devices", "8", "--compute-dtype", "bfloat16"], "--n-devices 8"),
+    (["--model", "dgcnn_rs", "--n-devices", "2"], PORTED + "flat segment"),
+    (["--n-devices", "8", "--compute-dtype", "bfloat16"], PORTED + "flat segment"),
     (["--flat-aggregate", "blocked"], PORTED + "flat blocked"),
     (["--batch-mode", "flat"], PORTED + "flat segment"),
     (["--dense-chunk", "5", "--dynamic-train", "--model", "dgcnn",
       "--flat-aggregate", "blocked"],
      PORTED + "--flat-aggregate blocked/pallas applies to the R-GCN trunk; "
               "use --model igmc"),
-    (["--dense-chunk", "5", "--n-devices", "2"], "--n-devices 2"),
+    (["--dense-chunk", "5", "--n-devices", "2"],
+     PORTED + "--dense-chunk is single-device; for multi-chip giant batches"),
 ])
 def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch):
     """Flags of code not ported exit naming the flag before any data is
-    read. The flat engines' flags (PORTED) pass unported_flags and choose
-    the flat layout and their engine, or exit with the JAX CLI's message."""
+    read. The flat engines' and the multi-device modes' flags (PORTED)
+    pass unported_flags and choose the flat layout and their engine, or
+    the edge-partitioned path, or exit with the JAX CLI's message."""
     monkeypatch.chdir(tmp_path)
     if not named.startswith(PORTED):
         with pytest.raises(SystemExit, match=re.escape(named) + ".*not ported"):
@@ -158,7 +166,14 @@ def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch)
     args = build_parser().parse_args(BASE + flags + ["--device", "cpu"])
     assert unported_flags(args) == []
     want = named[len(PORTED):]
-    if want.startswith("--"):
+    if parallel_mode(args) == "ep":
+        if want.startswith("--"):
+            with pytest.raises(SystemExit, match=re.escape(want)):
+                check_ep(args)
+        else:
+            check_ep(args)
+            assert want == "ep"
+    elif want.startswith("--"):
         with pytest.raises(SystemExit, match=re.escape(want)):
             choose_layouts(args, None)
     else:
@@ -249,3 +264,86 @@ def test_ml100k_with_features_matches_jax_cli(tmp_path_factory, tmp_path,
         assert mg.group(1) == mw.group(1)
         assert abs(float(mg.group(2)) - float(mw.group(2))) < 0.15, (got, want)
     assert logs["port"][-1].startswith("Epoch ensemble of range(-28, 2, 10),")
+
+
+def test_unported_flags_name_only_visualize():
+    """Of the JAX CLI's flags, only --visualize is refused: every other one
+    passes unported_flags, the multi-device ones included."""
+    args = build_parser().parse_args(
+        ["--parallel", "ep", "--n-devices", "8", "--ep-local-aggregate", "blocked",
+         "--visualize"])
+    assert unported_flags(args) == ["--visualize (it draws with matplotlib)"]
+    args.visualize = False
+    assert unported_flags(args) == []
+
+
+@pytest.fixture(scope="module")
+def raw100k(tmp_path_factory):
+    root = tmp_path_factory.mktemp("raw100k_multi")
+    write_ml100k_format(str(root), n_users=120, n_movies=100, n_ratings=2500, seed=4)
+    return str(root)
+
+
+ML100K = ["--data-name", "ml_100k", "--testing", "--max-train-num", "200",
+          "--max-test-num", "50", "--batch-size", "10"]
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--parallel", "ep", "--model", "gnn"], "--parallel ep implements the IGMC model"),
+    (["--parallel", "ep", "--dense-chunk", "5"], "--dense-chunk is the single-device"),
+    (["--parallel", "ep", "--dense-layout", "unified"], "--dense-layout applies to"),
+    (["--n-devices", "2", "--dense-chunk", "5"], "--dense-chunk is single-device;"),
+])
+def test_multi_device_exits_match_jax(raw100k, tmp_path, monkeypatch, flags, msg):
+    """The JAX CLI's exits under --parallel ep (another model, --dense-chunk,
+    --dense-layout) and --dense-chunk with --n-devices > 1: the port exits
+    with the JAX CLI's message, word for word."""
+    monkeypatch.setenv("IGMC_RAW_DATA", raw100k)
+    got = {}
+    for w, main in (("jax", jax_main), ("port", port_main)):
+        monkeypatch.chdir(tmp_path)
+        argv = ML100K + flags + (["--device", "cpu"] if w == "port" else [])
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        got[w] = str(e.value)
+    assert got["port"] == got["jax"] and got["port"].startswith(msg)
+
+
+@pytest.mark.parametrize("flags,line", [
+    (["--n-devices", "2"], "Data-parallel training over 2 devices"),
+    (["--parallel", "ep", "--n-devices", "2"], "Edge-partitioned training over 2 devices"),
+    (["--parallel", "ep", "--n-devices", "2", "--ep-local-aggregate", "blocked"],
+     "Edge-partitioned training over 2 devices"),
+])
+def test_multi_device_cli_trains_on_two_cpu_ranks(raw100k, tmp_path, monkeypatch,
+                                                  capfd, flags, line):
+    """--device cpu with two ranks (gloo) on the offline ml_100k fixture,
+    1 epoch with --ensemble: rank 0 prints the JAX CLI's line and writes
+    log.txt in the JAX format (the epoch line and the ensemble line, finite
+    RMSEs; after DP the ensemble runs on one device, after EP through
+    test_once_ep). Data-parallel training equals the single-device CLI run
+    on the same flags: its epoch RMSE within 1e-5."""
+    monkeypatch.setenv("IGMC_RAW_DATA", raw100k)
+    argv = ML100K + ["--epochs", "1", "--ensemble", "--save-interval", "1",
+                     "--device", "cpu"]
+    logs = {}
+    runs = {"multi": flags} | ({"single": []} if "ep" not in flags else {})
+    for name, extra in runs.items():
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        capfd.readouterr()
+        port_main(argv + extra)
+        out = capfd.readouterr().out.splitlines()
+        logs[name] = (tmp_path / name / "results" / "ml_100k_testmode" / "log.txt"
+                      ).read_text().splitlines()
+        if name == "multi":
+            assert line in out
+            assert "batch mode: dense (auto)" in out or "ep" in flags
+    log = logs["multi"]
+    assert len(log) == 2, log
+    assert LOG_LINE.match(log[0]).group(1) == "1"
+    assert log[1].startswith("Epoch ensemble of range(-29, 1, 10),")
+    assert all(np.isfinite(float(LOG_LINE.match(l).group(2))) for l in log)
+    if "single" in logs:
+        a, b = (float(LOG_LINE.match(logs[k][0]).group(2)) for k in ("multi", "single"))
+        assert abs(a - b) < 1e-5, (a, b)

@@ -29,7 +29,9 @@ PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
                 "igmc_torch.train.flaxmsgpack", "igmc_torch.data.hdf5",
                 "igmc_torch.data.matio", "igmc_torch.models.families",
                 "igmc_torch.ops.sort_pool", "igmc_torch.ops.segment",
-                "igmc_torch.ops.blocked")
+                "igmc_torch.ops.blocked", "igmc_torch.parallel.mesh",
+                "igmc_torch.parallel.dp", "igmc_torch.parallel.ep",
+                "igmc_torch.parallel.multihost")
 
 
 def _port_sources():

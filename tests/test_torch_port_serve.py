@@ -29,6 +29,7 @@ from igmc_torch.cli.predict import main as port_predict_main
 from igmc_torch.cli.predict import read_pairs
 from igmc_torch.data import load_official_trainvaltest_split
 from igmc_torch.models import IGMC, IGMCConfig
+from igmc_torch.parallel import Mesh
 from igmc_torch.serve import Predictor
 from igmc_torch.train import checkpoint_path, save_pth
 
@@ -167,8 +168,12 @@ def test_predictor_arguments_and_device(monkeypatch):
     M = rating_matrix(20, 30, density=0.2, seed=2)
     _, pcfg = configs()
     sd = IGMC(pcfg, torch.Generator().manual_seed(0)).state_dict()
-    with pytest.raises(NotImplementedError, match="P15"):
-        Predictor(M, CLASS_VALUES, pcfg, params=sd, mesh=object(), device="cpu")
+    # a mesh (ported: data-parallel serving, test_torch_port_parallel.py)
+    # refuses a batch that does not split over it, in the JAX words
+    with pytest.raises(ValueError, match=r"batch_size \(50\) must divide by the mesh "
+                                         r"size \(3\)"):
+        Predictor(M, CLASS_VALUES, pcfg, params=sd, device="cpu",
+                  mesh=Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo"))
     pred = Predictor(M, CLASS_VALUES, pcfg, params=sd, device="cpu",
                      compilation_cache_dir="/nonexistent")
     assert np.isfinite(pred.predict([0, 1], [2, 3])).all()

@@ -29,6 +29,7 @@ from igmc_tpu.utils.logging import make_logger as jax_make_logger
 from igmc_torch.batching import BatchLoader, StaticGraphDataset
 from igmc_torch.data import create_trainvaltest_split
 from igmc_torch.models import IGMC, IGMCConfig, arr_regularizer, draw_noise
+from igmc_torch.parallel import Mesh
 from igmc_torch.train import (get_learning_rate, load_checkpoint,
                               load_optimizer_state, loss_fn, make_optimizer,
                               params_from_jax, set_learning_rate)
@@ -302,20 +303,25 @@ def test_resume_checkpoints_and_log_format(data, monkeypatch, tmp_path):
 def test_train_multiple_epochs_refuses_what_is_not_ported(data, monkeypatch):
     """The segment and blocked flat engines (refused until they were
     ported) train an epoch to a finite RMSE, the model copy set to the
-    engine; an unknown engine raises ValueError, meshes raise
-    NotImplementedError; dense_chunk off the dense layout raises the JAX
-    package's ValueError (it runs on the dense layout:
-    test_torch_port_chunk.py)."""
+    engine; an unknown engine raises ValueError; a mesh (ported: the
+    multi-device modes, test_torch_port_parallel.py) raises the JAX
+    package's ValueErrors for a flat engine other than the segment one and
+    for a batch that does not split over it, before any collective;
+    dense_chunk off the dense layout raises the JAX package's ValueError
+    (it runs on the dense layout: test_torch_port_chunk.py)."""
     args = (data["train"][1], data["test"][1],
             IGMC(port_cfg(), torch.Generator().manual_seed(0)), 1, BATCH, 1e-3,
             0.1, 50)
     for engine in ("segment", "blocked"):
         rmse, state = train_multiple_epochs(*args, device="cpu", flat_aggregate=engine)
         assert np.isfinite(rmse) and state.model.cfg.flat_aggregate == engine
+    mesh = Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo")
     for kw, exc, match in (
             ({"flat_aggregate": "fused"}, ValueError, "unknown flat_aggregate"),
-            ({"mesh": object()}, NotImplementedError, "mesh"),
-            ({"batch_mode": "dense", "mesh": object()}, NotImplementedError, "mesh"),
+            ({"mesh": mesh, "flat_aggregate": "blocked"}, ValueError,
+             "flat_aggregate is a single-device path"),
+            ({"batch_mode": "dense", "mesh": mesh}, ValueError,
+             r"dense DP needs batch_size \(50\) divisible by the mesh size \(3\)"),
             ({"dense_chunk": 10}, ValueError, "dense_chunk needs batch_mode='dense'")):
         with pytest.raises(exc, match=match):
             train_multiple_epochs(*args, device="cpu", **kw)
