@@ -64,7 +64,8 @@ non-zero:
      device-assembled training batch (hash edge dropout on packed edge ids);
  12. the CLI: `python -m igmc_torch.cli.main --data-name ml_1m --testing
      --ensemble --epochs 2 --save-interval 1` on the same 2,000 + 2,000
-     pairs in a subprocess and a temporary directory: exit 0, `batch mode:
+     pairs in a subprocess and a working directory that phase 23 reuses:
+     exit 0, `batch mode:
      dense (auto)` and `dense layout: bipartite (auto)`, and a log.txt of
      two epoch lines and the ensemble line, each with a finite RMSE;
  13. side features, card against CPU: one ML-1M training batch of 50
@@ -183,7 +184,28 @@ non-zero:
      the EP forward time and comm_stats' halo against all-gather bytes per
      layer, printed beside the card's name and power limit; then the CLI on
      ml_100k (MULTI_CLI_CUT pairs) for 1 epoch with `--n-devices 2` and with
-     `--parallel ep --n-devices 2`, finite RMSEs in log.txt.
+     `--parallel ep --n-devices 2`, finite RMSEs in log.txt;
+ 23. the last modules (K1 and K2 launching 0 times in this process), at the
+     CLI's full width: (b) `python -m igmc_torch.cli.resilient
+     --stall-timeout STALL_TIMEOUT_S -- --data-name ml_100k --testing
+     --epochs 3 --save-interval 1 --n-devices 2` (two ranks on the card over
+     gloo) in the background: once the epoch-1 model and optimizer `.pth`
+     exist the child's process group gets SIGSTOP (alive and silent, as
+     under a hung collective); the supervisor must kill it, leave no
+     process of that group, relaunch with `--continue-from` >= 1 and exit 0
+     with epoch 3 last in log.txt and two launches in supervisor.log (the
+     child's longest silence and the seconds from the stop to the relaunch
+     printed); meanwhile (a) `--no-train --transfer <phase 12's results>
+     --epochs 2 --visualize` on phase 12's pairs in a subprocess (exit 0,
+     the PDF's structure and its 10 titles, `Transfer learning rmse is:`
+     equal to test_once on the card to 1e-5), then visualize in this
+     process on the card: its choice equal to the ranking of the card's
+     own predict_all (deterministic scatters) and held against the CPU's
+     (predictions atol 1e-4; a different choice only across a near tie,
+     the smallest gaps printed), the seconds of prediction and drawing; and
+     (c) `python -m igmc_torch.scripts.transfer_experiment --small` in a
+     fresh directory, three finite transfer RMSEs. Budget LAST_BUDGET_S,
+     printed.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -279,6 +301,20 @@ MULTI_CLI = {
            "Edge-partitioned training over 2 devices"),
 }
 MULTI_CLI_CUT = ["--max-train-num", "2000", "--max-test-num", "500"]
+# phase 23: the visualize CLI on phase 12's results (flags past --transfer
+# DIR), the supervisor's stall timeout and its child's flags, and the
+# phase's budget in seconds (printed, not enforced)
+VIS_CLI = ["--data-name", "ml_1m", "--testing", "--no-train", "--epochs", "2",
+           "--visualize", "--max-train-num", "2000", "--max-test-num", "2000",
+           "--max-nodes-per-hop", "100"]
+VIS_PANELS = 10
+# the supervisor's stall timeout; phase 23 prints the child's longest
+# silence in each launch (a two-rank start: spawning, the ranks' imports,
+# device and group set-up), so the margin under it is seen
+STALL_TIMEOUT_S = 15
+SUPERVISED_CLI = ["--data-name", "ml_100k", "--testing", "--epochs", "3",
+                  "--save-interval", "1", "--n-devices", "2"]
+LAST_BUDGET_S = 150
 # SortPool keys (the DGCNN trunk's last channel, tanh) card vs CPU
 KEY_ATOL = 1e-5
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
@@ -929,24 +965,25 @@ def _check_log(cwd, name, heads, what):
     return [float(l.split()[-1]) for l in log]
 
 
-def run_cli(raw_data: str) -> None:
+def run_cli(raw_data: str, cwd: str) -> float:
     """Phase 12: `python -m igmc_torch.cli.main` on ML-1M in a subprocess
-    and a temporary working directory; it must pick the dense bipartite
-    layout itself, train 2 epochs, ensemble and write log.txt."""
+    and the working directory `cwd` (phase 23 visualizes its results); it
+    must pick the dense bipartite layout itself, train 2 epochs, ensemble
+    and write log.txt. Returns its wall seconds."""
     cmd = [sys.executable, "-m", "igmc_torch.cli.main", "--data-name", "ml_1m",
            "--testing", "--ensemble", "--epochs", "2", "--save-interval", "1",
            "--max-train-num", str(MAX_NUM), "--max-test-num", str(MAX_NUM),
            "--max-nodes-per-hop", "100"]
-    with tempfile.TemporaryDirectory() as cwd:
-        lines = _subprocess(cmd, raw_data, cwd, "cli")[0]
-        for want in ("batch mode: dense (auto)", "dense layout: bipartite (auto)"):
-            if want not in lines:
-                fail(f"the CLI did not print {want!r}")
-        for line in lines:
-            if line.startswith(("batch mode", "dense layout", "Epoch", "Ensemble")):
-                print(f"[cli]   {line}")
-        _check_log(cwd, "ml_1m", ["Epoch 1,", "Epoch 2,",
-                                  "Epoch ensemble of range(-13, 2, 5),"], "cli")
+    lines, _, wall = _subprocess(cmd, raw_data, cwd, "cli")
+    for want in ("batch mode: dense (auto)", "dense layout: bipartite (auto)"):
+        if want not in lines:
+            fail(f"the CLI did not print {want!r}")
+    for line in lines:
+        if line.startswith(("batch mode", "dense layout", "Epoch", "Ensemble")):
+            print(f"[cli]   {line}")
+    _check_log(cwd, "ml_1m", ["Epoch 1,", "Epoch 2,",
+                              "Epoch ensemble of range(-13, 2, 5),"], "cli")
+    return wall
 
 
 def family_model(cfg, generator):
@@ -2652,6 +2689,326 @@ def multi_device_phase(split, cfg, train_ds, test_ds, dense_ckpts, raw_data, wor
     return out
 
 
+def _ranking_gaps(preds, num: int):
+    """(the smallest gap between neighbouring ranked predictions, the
+    smallest among the num + 1 highest and the num + 1 lowest: the gaps
+    that decide which graphs are drawn and in which order)."""
+    gaps = np.diff(np.sort(np.asarray(preds, np.float64)))
+    return float(gaps.min()), float(min(gaps[:num].min(), gaps[-num:].min()))
+
+
+def _visualize_check(raw_data, cwd12, cli_wall, smi):
+    """Phase 23 (a): the visualize CLI on phase 12's checkpoints in a
+    subprocess (exit 0, the PDF's structure and titles, the transfer RMSE
+    against test_once on the card), then visualize in this process on the
+    card against the card's own predict_all and the CPU's ranking."""
+    import contextlib
+    import copy
+    import io
+
+    import torch
+    from igmc_torch.batching import BatchLoader
+    from igmc_torch.cli.main import (build_datasets, build_model, build_parser,
+                                     choose_layouts, load_split, rating_maps)
+    from igmc_torch.device import resolve_device
+    from igmc_torch.train import (load_checkpoint, make_eval_step, predict_all,
+                                  resolve_checkpoint, test_once)
+    from igmc_torch.train import visualize as vis
+    from igmc_torch.train.loop import _flat_model
+    from igmc_torch.utils.pdf import check_pdf
+
+    res12 = os.path.join(cwd12, "results", "ml_1m_testmode")
+    argv = VIS_CLI + ["--transfer", res12]
+    cmd = [sys.executable, "-m", "igmc_torch.cli.main"] + argv
+    lines, _, wall = _subprocess(cmd, raw_data, cwd12, "visualize cli")
+    found = [l for l in lines if l.startswith("Transfer learning rmse is: ")]
+    if len(found) != 1 or not math.isfinite(float(found[0].split()[-1])):
+        fail(f"the visualize CLI printed {found} for the transfer RMSE")
+    cli_rmse = float(found[0].split()[-1])
+    pdf = os.path.join(res12, "visualization_ml_1m_prediction.pdf")
+    if f"saved {os.path.join('results', 'ml_1m_testmode', os.path.basename(pdf))}" \
+            not in lines or not os.path.isfile(pdf):
+        fail("the visualize CLI wrote no visualization_ml_1m_prediction.pdf")
+    try:
+        content = check_pdf(pdf)
+    except ValueError as e:
+        fail(f"the visualize CLI's PDF: {e}")
+    titles = re.findall(r"/F1 20 Tf \S+ \S+ Td \((.*)\) Tj ET", content)
+    if len(titles) != VIS_PANELS:
+        fail(f"the visualize CLI's PDF has {len(titles)} titles, not {VIS_PANELS}")
+
+    # the same datasets, model and checkpoint in this process, on the card
+    here = os.getcwd()
+    os.chdir(cwd12)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            args = build_parser().parse_args(argv)
+            split = load_split(args, *rating_maps(args))
+            train_graphs, _, test_graphs, _ = build_datasets(args, split)
+            batch_mode = choose_layouts(args, train_graphs)[0]
+            model = build_model(args, split)
+            params = load_checkpoint(resolve_checkpoint(res12, "model", args.epochs))
+            rmse = test_once(test_graphs, model, BATCH_SIZE, params=params,
+                             batch_mode=batch_mode, device="cuda")
+    finally:
+        os.chdir(here)
+    if abs(rmse - cli_rmse) > 1e-5:
+        fail(f"the visualize CLI's transfer RMSE {cli_rmse} is not test_once's "
+             f"{rmse:.6f} on the card (1e-5)")
+    model.load_state_dict(params)
+
+    seen = {}
+    steps = {"predict": vis.predict, "choose": vis.choose, "draw": vis.draw}
+
+    def spy(name):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = steps[name](*a, **k)
+            torch.cuda.synchronize()
+            seen[name] = out
+            seen[f"{name}_s"] = time.perf_counter() - t0
+            return out
+        return run
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name in steps:
+            setattr(vis, name, spy(name))
+        with tempfile.TemporaryDirectory() as out_dir, \
+                contextlib.redirect_stdout(io.StringIO()):
+            vis.visualize(model, test_graphs, out_dir, "ml_1m", split.class_values,
+                          batch_size=BATCH_SIZE, device="cuda")
+        dev = resolve_device("cuda")
+        card = _flat_model(copy.deepcopy(model).to(dev).eval(), "segment")
+        own, _ = predict_all(make_eval_step(card), BatchLoader(test_graphs, BATCH_SIZE),
+                             dev)
+    finally:
+        for name, fn in steps.items():
+            setattr(vis, name, fn)
+        torch.use_deterministic_algorithms(False)
+    preds, ys = seen["predict"]
+    chosen = seen["choose"]
+    num = VIS_PANELS // 2
+    if not np.array_equal(own, preds) or vis.choose(own, ys, num) != chosen:
+        fail("visualize's predictions or choice differ from the card's own "
+             "predict_all with deterministic scatters")
+    cpu_preds, _ = vis.predict(model, test_graphs, BATCH_SIZE, device="cpu")
+    diff = float(np.abs(cpu_preds - preds).max())
+    if diff > PRED_ATOL:
+        fail(f"visualize's predictions on the card and the CPU differ by {diff:.3e}")
+    cpu_chosen = vis.choose(cpu_preds, ys, num)
+    smallest, deciding = _ranking_gaps(preds, num)
+    if cpu_chosen != chosen and deciding > 2 * PRED_ATOL:
+        fail(f"the CPU chose {cpu_chosen}, the card {chosen}, with no near tie "
+             f"(deciding gap {deciding:.3e})")
+    print(f"[last] visualize: {len(preds)} test graphs; the card chose {chosen} "
+          f"(its own predict_all: the same, predictions equal with deterministic "
+          f"scatters); the CPU {'the same' if cpu_chosen == chosen else cpu_chosen}, "
+          f"predictions within {diff:.3e}; smallest gap between neighbouring ranked "
+          f"predictions {smallest:.3e}, {deciding:.3e} among the drawn ranks")
+    print(f"[last] {smi}: visualize CLI {wall:.2f} s wall (phase 12's training CLI "
+          f"{cli_wall:.2f} s); transfer RMSE {cli_rmse:.6f} = test_once {rmse:.6f}; "
+          f"in this process prediction {seen['predict_s']:.3f} s, drawing "
+          f"{seen['draw_s']:.3f} s", flush=True)
+    return {"cli_s": wall, "phase12_cli_s": cli_wall, "rmse": cli_rmse,
+            "predict_s": seen["predict_s"], "draw_s": seen["draw_s"],
+            "cpu_diff": diff, "min_gap": smallest, "deciding_gap": deciding,
+            "cpu_same_choice": cpu_chosen == chosen}
+
+
+class Supervised:
+    """Phase 23 (b): `python -m igmc_torch.cli.resilient` over a two-rank
+    ml_100k run on the card (gloo), started in the background. A watcher
+    thread stops the child's process group (SIGSTOP: alive and silent, as
+    under a hung collective) as soon as the epoch-1 checkpoints exist, then
+    waits for the supervisor to kill it and relaunch; `finish` checks that
+    no process of the stopped group is left, that the relaunch resumed
+    from epoch >= 1 and that the supervisor exited 0 with epoch 3 logged.
+    (a) and (c) run meanwhile: the supervisor spends most of this time
+    waiting out its stall timeout."""
+
+    def __init__(self, raw_data, work):
+        import threading
+
+        cwd = os.path.join(work, "resilient_run")
+        os.makedirs(cwd)
+        self.res = os.path.join(cwd, "results", "ml_100k_testmode")
+        self.sup_log = os.path.join(self.res, "supervisor.log")
+        self.out_path = os.path.join(work, "resilient_out.txt")
+        path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+        env = dict(os.environ, IGMC_RAW_DATA=raw_data, PYTHONPATH=path)
+        cmd = [sys.executable, "-m", "igmc_torch.cli.resilient", "--stall-timeout",
+               str(STALL_TIMEOUT_S), "--"] + SUPERVISED_CLI
+        self.error, self.relaunch_s, self.pgid = None, None, None
+        self.silence = [0.0, 0.0]       # the longest silence of each launch
+        self.t0 = time.perf_counter()
+        with open(self.out_path, "w") as out:
+            self.sup = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out,
+                                        stderr=subprocess.STDOUT)
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+
+    def launches(self):
+        """(each launch's resume epoch, each child's process group) so far."""
+        text = open(self.sup_log).read() if os.path.isfile(self.sup_log) else ""
+        return (re.findall(r"=== supervisor: launching \(resume=(\w+)\) ===", text),
+                [int(g) for g in re.findall(r"child pid \d+ \(process group (\d+)\)",
+                                            text)])
+
+    def _until(self, cond, timeout: float) -> bool:
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > timeout:
+                return False
+            time.sleep(0.01)
+        return True
+
+    def _watch(self) -> None:
+        import signal
+
+        ckpts = [os.path.join(self.res, f"{k}_checkpoint1.pth")
+                 for k in ("model", "optimizer")]
+        seen = {"size": -1, "since": time.perf_counter(), "launch": 0}
+
+        def track():
+            # keeps the longest time the child's log did not grow
+            now = time.perf_counter()
+            size = os.path.getsize(self.sup_log) if os.path.isfile(self.sup_log) else 0
+            if size != seen["size"]:
+                seen.update(size=size, since=now)
+            k = seen["launch"]
+            self.silence[k] = max(self.silence[k], now - seen["since"])
+
+        def checkpointed():
+            track()
+            return all(os.path.isfile(c) for c in ckpts) or self.sup.poll() is not None
+
+        try:
+            if not self._until(checkpointed, 300):
+                self.error = "no epoch-1 checkpoints within 300 s"
+                return
+            resumes, groups = self.launches()
+            if self.sup.poll() is not None or len(groups) != 1:
+                self.error = (f"the supervised run ended or relaunched before its "
+                              f"stop (launches {resumes})")
+                return
+            self.pgid = groups[0]
+            os.killpg(self.pgid, signal.SIGSTOP)
+            t_stop = time.perf_counter()
+            if not self._until(lambda: len(self.launches()[0]) > 1
+                               or self.sup.poll() is not None, STALL_TIMEOUT_S + 120):
+                self.error = "no relaunch after the stop"
+                return
+            self.relaunch_s = time.perf_counter() - t_stop
+            try:
+                os.killpg(self.pgid, 0)
+                self.error = f"a process of the stopped child's group {self.pgid} survived"
+            except ProcessLookupError:
+                pass
+            # the relaunched child's longest silence, to the supervisor's end
+            seen.update(size=-1, since=time.perf_counter(), launch=1)
+            self._until(lambda: track() or self.sup.poll() is not None, 400)
+        except OSError as e:
+            self.error = f"the watcher: {e!r}"
+
+    def abort(self) -> None:
+        """Stop every process of the supervised run (a check failed)."""
+        import signal
+
+        if self.sup.poll() is None:
+            for group in self.launches()[1]:
+                try:
+                    os.killpg(group, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            self.sup.kill()
+            self.sup.wait()
+
+    def finish(self, smi) -> dict:
+        try:
+            rc = self.sup.wait(timeout=420)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.thread.join(timeout=60)
+        wall = time.perf_counter() - self.t0
+        if rc is None or self.error or self.thread.is_alive():
+            self.abort()
+            print(open(self.sup_log).read()[-4000:] if os.path.isfile(self.sup_log)
+                  else "")
+            fail(f"the supervised run: {self.error or 'did not end'}")
+        resumes, _ = self.launches()
+        if rc != 0:
+            print(open(self.out_path).read()[-4000:])
+            fail(f"the supervisor exited {rc}")
+        if len(resumes) != 2 or resumes[0] != "None" or not resumes[1].isdigit() \
+                or int(resumes[1]) < 1:
+            fail(f"supervisor.log shows the launches {resumes}, not a fresh one and "
+                 f"one with --continue-from >= 1")
+        log = open(os.path.join(self.res, "log.txt")).read().splitlines()
+        if not log or not log[-1].startswith("Epoch 3,") or \
+                not math.isfinite(float(log[-1].split()[-1])):
+            fail(f"the supervised run's log.txt ends {log[-1:]}")
+        print(f"[last] supervisor: child group {self.pgid} stopped after the epoch-1 "
+              f"checkpoints; killed, none of its processes left, relaunched with "
+              f"--continue-from {resumes[1]}, exit 0; log.txt: {log[-1]}")
+        print(f"[last] {smi}: the child's longest silence {self.silence[0]:.2f} s "
+              f"before the stop, {self.silence[1]:.2f} s after the relaunch; stop to "
+              f"relaunch {self.relaunch_s:.2f} s (stall "
+              f"timeout {STALL_TIMEOUT_S} s + the supervisor's poll and 20 s SIGTERM "
+              f"grace); the supervised run {wall:.2f} s, (a) and (c) running beside "
+              f"it", flush=True)
+        return {"relaunch_s": self.relaunch_s, "seconds": wall,
+                "resume": int(resumes[1]), "epochs_logged": len(log),
+                "longest_silence_s": self.silence}
+
+
+def _transfer_check(raw_data, work, smi):
+    """Phase 23 (c): `python -m igmc_torch.scripts.transfer_experiment
+    --small` in a fresh directory: exit 0 and a summary with three finite
+    transfer RMSEs."""
+    cwd = os.path.join(work, "transfer_run")
+    os.makedirs(cwd)
+    cmd = [sys.executable, "-m", "igmc_torch.scripts.transfer_experiment", "--small"]
+    lines, _, wall = _subprocess(cmd, raw_data, cwd, "transfer experiment")
+    try:
+        summary = json.loads(lines[-1])
+        rmses = {k: float(summary[f"{k}_transfer_rmse"])
+                 for k in ("flixster", "douban", "yahoo_music")}
+    except (ValueError, KeyError, IndexError) as e:
+        fail(f"the transfer experiment's summary line: {e}")
+    if not all(math.isfinite(v) for v in rmses.values()):
+        fail(f"the transfer experiment's RMSEs are not finite: {rmses}")
+    print(f"[last] {smi}: transfer experiment --small {wall:.2f} s; "
+          f"{summary['pth_exported']} source .pth; transfer RMSEs {rmses}", flush=True)
+    return {"seconds": wall, **rmses}
+
+
+def last_modules_phase(raw_data, cwd12, cli_wall, work, smi, reset_counts,
+                       read_counts, expect):
+    """Phase 23: the last modules of the JAX package, K1 and K2 launching 0
+    times (in this process): (b) the supervisor over a wedged two-rank run
+    in the background, while (a) --visualize on phase 12's checkpoints and
+    (c) the transfer experiment run. Returns the numbers it measured."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    supervised = Supervised(raw_data, work)
+    try:
+        out = {"visualize": _visualize_check(raw_data, cwd12, cli_wall, smi)}
+        read_counts("last_modules")
+        expect("last_modules", "rgcn_aggregate_fwd", 0)
+        expect("last_modules", "rgcn_aggregate_bwd", 0)
+        out["transfer"] = _transfer_check(raw_data, work, smi)
+    except BaseException:
+        supervised.abort()
+        raise
+    out["supervisor"] = supervised.finish(smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[last] {smi}: phase seconds {out['seconds']:.2f} (budget "
+          f"{LAST_BUDGET_S} s{'' if out['seconds'] <= LAST_BUDGET_S else ', OVER'})",
+          flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--raw-data", default=os.environ.get("IGMC_RAW_DATA")
@@ -2938,8 +3295,10 @@ def main() -> None:
             card_vs_cpu_step(cfg, dtrain[0], "card vs CPU, dense")
 
         # ---- 12. the CLI -------------------------------------------------------
+        cwd_cli = os.path.join(work, "cli_run")
+        os.makedirs(cwd_cli)
         with phase("cli"):
-            run_cli(args.raw_data)
+            cli_wall = run_cli(args.raw_data, cwd_cli)
 
         # ---- 13. side features, card against CPU ----------------------------------
         with phase("features"):
@@ -2994,6 +3353,11 @@ def main() -> None:
                                        args.raw_data, work, smi, reset_counts,
                                        read_counts, expect)
 
+        # ---- 23. the last modules ---------------------------------------------
+        with phase("last modules"):
+            last = last_modules_phase(args.raw_data, cwd_cli, cli_wall, work, smi,
+                                      reset_counts, read_counts, expect)
+
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
@@ -3029,6 +3393,7 @@ def main() -> None:
     print(f"[families] numbers: {json.dumps(families)}")
     print(f"[flat] numbers: {json.dumps(flat)}")
     print(f"[multi] numbers: {json.dumps(multi)}")
+    print(f"[last] numbers: {json.dumps(last)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,12 +10,15 @@ Entry points run on the CUDA device unless the caller passes
 computes its plain PyTorch version; on a CUDA tensor it launches the
 kernel or raises.
 
-Ported so far: training, evaluation and serving on the dense slot layout
-(float32 or bfloat16; edge, adjacency and relation-slotted strategies,
-edge-k as an alias of edge; giant batches) and on the flat layout with the fused R-GCN
-aggregate kernels, the MovieLens datasets, and the CLIs (README.md), on
-one device or several (parallel/: data parallel and edge-partitioned,
-one process per device over torch.distributed).
+It does all that `igmc_tpu` does: training, evaluation and serving on
+the dense slot layout (float32 or bfloat16; edge, adjacency and
+relation-slotted strategies, edge-k as an alias of edge; giant batches) and
+on the flat layout (the segment and blocked engines and the fused R-GCN
+aggregate kernels), every model family, the MovieLens and Monti datasets,
+the CLIs with --visualize, the stall-resilient supervisor and the
+experiment scripts (README.md), on one device or several (parallel/: data
+parallel and edge-partitioned, one process per device over
+torch.distributed).
 """
 
 from .device import resolve_device

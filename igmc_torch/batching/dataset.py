@@ -212,7 +212,8 @@ class StaticGraphDataset:
     links; `u_features` / `v_features` (users x du, items x dv, dense or
     sparse) give each graph its target rows. With `root`, the packed
     arrays are loaded from `<root>/processed/<cache_name>` when that file
-    exists, else extracted and written there."""
+    exists, else extracted and written there. `progress` prints a
+    heartbeat to stderr while extracting (extract_many)."""
 
     def __init__(
         self,
@@ -229,6 +230,7 @@ class StaticGraphDataset:
         seed: int = 0,
         backend: str = "auto",
         root: Optional[str] = None,
+        progress: bool = True,
     ):
         links, labels = _apply_max_num(links, labels, max_num)
         self.cache_path = None
@@ -244,7 +246,7 @@ class StaticGraphDataset:
         self.packed = _PackedGraphs(extract_many(
             links, labels, A, h, sample_ratio, max_nodes_per_hop,
             _densify(u_features), _densify(v_features), class_values,
-            seed=seed, backend=backend))
+            seed=seed, backend=backend, progress=progress))
         if self.cache_path:
             self.packed.save(self.cache_path)
 

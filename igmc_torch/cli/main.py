@@ -47,15 +47,22 @@ the checkpoints. After data-parallel training the ensemble or transfer
 evaluation runs on rank 0's device, as in the JAX CLI; after
 edge-partitioned training it runs through test_once_ep on every rank.
 
-The one flag whose code is not ported yet exits with a message naming it:
-`--visualize` (it draws with matplotlib). `--compilation-cache-dir` is
-accepted and changes nothing here (the port compiles no XLA programs).
+`--visualize` loads `model_checkpoint<--epochs>` (of the results dir, or of
+`--transfer`'s) after training and draws the best- and worst-predicted test
+subgraphs into results/<run>/visualization_<data>_prediction.pdf
+(train/visualize.py, no plotting library); with `--transfer` it also prints
+`Transfer learning rmse is:`; then the run ends without an ensemble, as in
+the JAX CLI (under `--parallel ep` it prints the JAX CLI's notice and goes
+on). `--compilation-cache-dir` is accepted and changes nothing here (the
+port compiles no XLA programs). Every flag of the JAX CLI is ported:
+`unported_flags` returns [].
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import math
 import os
 import shutil
@@ -199,11 +206,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def unported_flags(args) -> list:
-    """The given flags whose code igmc_torch does not have yet."""
-    checks = [
-        (args.visualize, "--visualize (it draws with matplotlib)"),
-    ]
-    return [flag for hit, flag in checks if hit]
+    """The given flags whose code igmc_torch does not have yet: none, every
+    flag of the JAX CLI is ported (main exits naming any that this lists)."""
+    return []
 
 
 def parallel_mode(args) -> str:
@@ -558,6 +563,9 @@ def run(args, mesh=None) -> None:
                 continue_from=args.continue_from, res_dir=res.path,
                 seed=args.seed, profile_dir=args.profile_dir or None,
                 local_aggregate=args.ep_local_aggregate)
+        if args.visualize:
+            print("--visualize under --parallel ep: rerun without ep "
+                  "(visualization evaluates per-subgraph on one device)")
         if args.ensemble:
             se, ee, iv = ensemble_range(args)
             checkpoints = [resolve_checkpoint(ckpt_dir, "model", x)
@@ -600,6 +608,11 @@ def run(args, mesh=None) -> None:
     if not lead:
         return      # the evaluation below runs on one device, rank 0's
 
+    if args.visualize:
+        visualize_run(args, split, model, test_graphs, res, ckpt_dir, logger,
+                      batch_mode, device)
+        return      # no ensemble after --visualize, as in the JAX CLI
+
     eval_kw = dict(batch_mode=batch_mode, flat_aggregate=flat_aggregate,
                    dense_chunk=args.dense_chunk, dense_layout=dense_layout,
                    device=device)
@@ -640,6 +653,25 @@ def run(args, mesh=None) -> None:
 
     res.log_line("Epoch {}, train loss {:.4f}, test rmse {:.6f}".format(
         epoch_info, 0, rmse))
+
+
+def visualize_run(args, split, model, test_graphs, res, ckpt_dir, logger,
+                  batch_mode: str, device) -> None:
+    """--visualize: draw the test graphs' best and worst predictions of
+    the checkpoint of epoch --epochs; with --transfer also evaluate it
+    (test_once on the CLI's batch mode) and print the JAX CLI's line."""
+    from ..train import load_checkpoint, resolve_checkpoint, test_once
+    from ..train.visualize import visualize
+
+    params = load_checkpoint(resolve_checkpoint(ckpt_dir, "model", args.epochs))
+    trained = copy.deepcopy(model)
+    trained.load_state_dict(params)
+    visualize(trained, test_graphs, res.path, args.data_name, split.class_values,
+              batch_size=args.batch_size, device=device)
+    if args.transfer:
+        rmse = test_once(test_graphs, model, args.batch_size, params=params,
+                         logger=logger, batch_mode=batch_mode, device=device)
+        print("Transfer learning rmse is: {:.6f}".format(rmse))
 
 
 def ensemble_range(args):

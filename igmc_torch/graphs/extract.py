@@ -171,6 +171,9 @@ def side_features(u: int, v: int, u_features, v_features):
             np.asarray(v_features[v]).reshape(-1).astype(np.float32))
 
 
+NATIVE_SLICE = 65536     # links per C++ engine call (a heartbeat between)
+
+
 def extract_many(
     links: Sequence[np.ndarray],
     labels: np.ndarray,
@@ -184,21 +187,38 @@ def extract_many(
     seed: int = 0,
     backend: str = "auto",
     indices: Optional[np.ndarray] = None,
+    progress: bool = False,
 ):
     """Extract enclosing subgraphs for every (u, v) link with the engine
     `backend` names ("auto", "numpy" or "native"; see the module doc).
 
     Deterministic: link i draws from the stream keyed by (seed, stream id),
-    the stream id being `indices[i]` when given and i otherwise."""
+    the stream id being `indices[i]` when given and i otherwise.
+    `progress` prints "extracting subgraphs i/n" to stderr at most every
+    30 s (utils/progress.py; the JAX package shows a tqdm bar), after each
+    graph of the NumPy engine and each slice of NATIVE_SLICE links of the
+    C++ engine."""
     from . import native
+    from ..utils.progress import Heartbeat
 
-    if native.resolve_backend(backend) == "native":
-        return native.extract_many_native(
-            links, labels, A, h, sample_ratio, max_nodes_per_hop,
-            u_features, v_features, class_values, seed, indices=indices)
     us, vs = links
+    n = len(us)
+    beat = Heartbeat("extracting subgraphs", n) if progress else None
+    if native.resolve_backend(backend) == "native":
+        ids = np.arange(n, dtype=np.int64) if indices is None else np.asarray(indices)
+        labels = np.asarray(labels)
+        out = []
+        for s in range(0, n, NATIVE_SLICE):
+            sl = slice(s, s + NATIVE_SLICE)
+            out += native.extract_many_native(
+                (us[sl], vs[sl]), labels[sl], A, h, sample_ratio,
+                max_nodes_per_hop, u_features, v_features, class_values, seed,
+                indices=ids[sl])
+            if beat is not None:
+                beat(len(out))
+        return out
     out = []
-    for i in range(len(us)):
+    for i in range(n):
         sid = int(indices[i]) if indices is not None else i
         rng = np.random.default_rng(np.random.SeedSequence([seed, sid]))
         out.append(
@@ -207,4 +227,6 @@ def extract_many(
                 u_features, v_features, class_values, int(labels[i]), rng,
             )
         )
+        if beat is not None:
+            beat(i + 1)
     return out

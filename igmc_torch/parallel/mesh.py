@@ -7,7 +7,8 @@ own idiom: a `Mesh` is one process's view of the group (its rank, the
 group's size, its device and the backend), and the collectives of the
 parallel paths (all_reduce, all_gather, all_to_all, barrier) go through it.
 
-Backend rule (rank 0 prints the choice once on stderr):
+Backend rule (rank 0 prints the choice once on stderr, after spawn's
+"starting n rank(s)" line):
   * nccl when each rank has a card of its own;
   * gloo on the CPU;
   * gloo when ranks share a card: NCCL refuses two ranks on one device.
@@ -215,6 +216,9 @@ def spawn(fn: Callable, n: int, device="cuda", args: tuple = (),
         init_method = "file://" + os.path.join(tmp, "rendezvous")
         if n == 1:
             return [_run_rank(fn, 0, 1, device, init_method, args, timeout)]
+        # a line before the ranks' silent start (imports, device and group
+        # set-up), which a supervisor reads as liveness (cli/resilient.py)
+        print(f"igmc_torch.parallel: starting {n} rank(s)", file=sys.stderr, flush=True)
         try:
             mp.spawn(_entry, args=(fn, n, device, init_method, tmp, args, timeout),
                      nprocs=n, join=True)

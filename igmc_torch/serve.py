@@ -174,7 +174,8 @@ class Predictor:
             h=self.h, sample_ratio=self.sample_ratio,
             max_nodes_per_hop=self.max_nodes_per_hop,
             u_features=self.u_features, v_features=self.v_features,
-            class_values=self.class_values, backend=self.engine)
+            class_values=self.class_values, backend=self.engine,
+            progress=False)  # serving hot path: no heartbeat
 
     @torch.no_grad()
     def score(self, ds: StaticGraphDataset) -> np.ndarray:

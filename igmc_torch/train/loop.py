@@ -74,6 +74,7 @@ from ..batching.device_data import (DeviceDataset, assemble_batch, assemble_dens
 from ..device import resolve_device
 from ..models.igmc import IGMC, arr_regularizer, draw_noise, slice_noise
 from ..parallel.dp import make_dp_train_step, rank_columns, rank_noise
+from ..utils.progress import Heartbeat
 from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
 
 
@@ -649,6 +650,7 @@ def train_multiple_epochs(
     profile_dir: Optional[str] = None,
     prefetch: int = 2,
     device="cuda",
+    progress: bool = True,
 ):
     """Full training run of a copy of `model` (the caller's is not
     modified); returns (final test RMSE, TrainState).
@@ -681,7 +683,9 @@ def train_multiple_epochs(
     torch.profiler Chrome trace of the training pass of epoch start + 1
     there (the first epoch after the one that builds and warms up). Runs on
     `device` (default "cuda"; raises without a CUDA device unless
-    device="cpu").
+    device="cpu"). `progress` prints "epochs i/n" to stderr after an epoch,
+    at most every 30 s (utils/progress.py; the JAX package shows a tqdm
+    bar over the epochs).
 
     `mesh` (parallel/mesh.py, this process's rank; `device` is then the
     mesh's) trains data-parallel, as the module docstring says, with the
@@ -771,6 +775,7 @@ def train_multiple_epochs(
 
     rmses = []
     t_start = time.perf_counter()
+    beat = Heartbeat("epochs", epochs) if progress and lead else None
     for epoch in range(start_epoch, epochs + start_epoch):
         t_epoch = time.perf_counter()
         noise_gen = _noise_generator(seed, epoch)
@@ -823,6 +828,8 @@ def train_multiple_epochs(
                               lr_decay_factor * get_learning_rate(optimizer))
         if logger is not None and lead:
             logger(info, state)
+        if beat is not None:
+            beat(epoch - start_epoch + 1)
 
     if mesh is not None:
         mesh.barrier()          # rank 0's checkpoints are written
@@ -870,6 +877,7 @@ def train_multiple_epochs_ep(
     seed: int = 1,
     profile_dir: Optional[str] = None,
     local_aggregate: str = "segment",
+    progress: bool = True,
 ):
     """Training under EDGE-PARTITIONED parallelism (parallel/ep.py): every
     batch of batch_size graphs is ONE giant disjoint batch-graph split over
@@ -881,7 +889,8 @@ def train_multiple_epochs_ep(
     hash stream of ep_step_seed, and the local aggregate is
     `local_aggregate` 'segment' or 'blocked'. `model` is an IGMC (a copy is
     trained, on the mesh's device). Rank 0 alone prints and calls
-    `logger`. Returns (final RMSE, TrainState), the same on every rank."""
+    `logger` and, with `progress`, train_multiple_epochs' heartbeat.
+    Returns (final RMSE, TrainState), the same on every rank."""
     from ..parallel.ep import ep_eval_sums, ep_train_epoch, make_ep_train_step
 
     dev = mesh.device
@@ -908,6 +917,7 @@ def train_multiple_epochs_ep(
 
     rmses = []
     t_start = time.perf_counter()
+    beat = Heartbeat("epochs", epochs) if progress and lead else None
     for epoch in range(start_epoch, epochs + start_epoch):
         t_epoch = time.perf_counter()
         prof = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
@@ -937,6 +947,8 @@ def train_multiple_epochs_ep(
                               lr_decay_factor * get_learning_rate(optimizer))
         if logger is not None and lead:
             logger(info, state)
+        if beat is not None:
+            beat(epoch - start_epoch + 1)
 
     mesh.barrier()              # rank 0's checkpoints are written
     duration = time.perf_counter() - t_start

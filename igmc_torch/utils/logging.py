@@ -37,8 +37,9 @@ class ResultsDir:
 
     def snapshot_source(self) -> None:
         """Write source_snapshot.txt: the git revision (when the package
-        sits in a git checkout) and a sha256 prefix of each .py, .cu and
-        .cuh file of igmc_torch/."""
+        sits in a git checkout) and a sha256 prefix of each .py, .cpp, .cu
+        and .cuh file of igmc_torch/ (the C++ extraction engine and the
+        CUDA kernels included)."""
         pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         lines = []
         try:
@@ -51,7 +52,7 @@ class ResultsDir:
             lines.append(f"git_revision {rev}")
         for dirpath, _, files in sorted(os.walk(pkg_root)):
             for fn in sorted(files):
-                if fn.endswith((".py", ".cu", ".cuh")):
+                if fn.endswith((".py", ".cpp", ".cu", ".cuh")):
                     p = os.path.join(dirpath, fn)
                     with open(p, "rb") as f:
                         h = hashlib.sha256(f.read()).hexdigest()[:16]

@@ -3,7 +3,9 @@ ML-1M (igmc_tpu.data.synthetic.write_ml1m_format; the port on --device
 cpu): the same `batch mode` and `dense layout` lines under each layout
 rule (dynamic data included), a training run with --ensemble writing
 log.txt in the same format with RMSEs in a stated band, the files of a
-results directory, every unported flag refused by name, the flat engines
+results directory (the C++ engine in its source snapshot), the layout
+each once-unported flag chooses (none is refused now), --visualize (with
+--transfer, and under --parallel ep) through the CLI, the flat engines
 (segment, blocked, DGCNN's flat form) trained through the CLI,
 ml_100k's official split with side features trained by both CLIs to RMSEs
 in a stated band, and the multi-device modes (--n-devices, --parallel ep,
@@ -24,6 +26,7 @@ from igmc_tpu.data.synthetic import write_ml1m_format, write_ml100k_format
 
 from igmc_torch.cli.main import (build_parser, check_ep, choose_layouts,
                                  main as port_main, parallel_mode, unported_flags)
+from igmc_torch.utils import ResultsDir
 
 torch.set_num_threads(1)
 
@@ -117,27 +120,39 @@ def test_training_run_matches_jax_cli(raw, tmp_path, monkeypatch, capsys):
         assert "Ensemble test rmse is: " + logs[w][-1].split()[-1] in outs[w]
 
 
-# flags of the flat engines and the multi-device modes, refused until they
-# were ported: they pass unported_flags and choose the JAX CLI's (layout,
-# engine), or the edge-partitioned path ("ep"), or exit with its own
-# message (--batch-size 25 does not split over 2, 4 or 8 devices, so the
-# auto batch mode under --n-devices is flat, as in the JAX CLI)
+# flags of the flat engines, the multi-device modes and --visualize,
+# refused until they were ported: they pass unported_flags and choose the
+# JAX CLI's (layout, engine), or the edge-partitioned path ("ep"), or exit
+# with its own message (--batch-size 25 does not split over 2, 4 or 8
+# devices, so the auto batch mode under --n-devices is flat, as in the JAX
+# CLI; --visualize changes no layout: dynamic data and other families run
+# dense unified, static IGMC data with small graphs too)
 PORTED = "ported: "
+
+
+class SmallGraphs:
+    """A training set whose median graph has 10 nodes (unified layout)."""
+
+    def __len__(self):
+        return 4
+
+    def node_counts(self):
+        return np.full(4, 10)
 
 
 @pytest.mark.parametrize("flags,named", [
     (["--parallel", "ep"], PORTED + "ep"),
     (["--n-devices", "2"], PORTED + "flat segment"),
     (["--dynamic-train", "--parallel", "ep"], PORTED + "ep"),
-    (["--dynamic-dataset", "--visualize"], "--visualize (it draws with matplotlib)"),
+    (["--dynamic-dataset", "--visualize"], PORTED + "dense segment"),
     (["--model", "dgcnn", "--parallel", "ep"],
      PORTED + "--parallel ep implements the IGMC model"),
     (["--batch-mode", "flat", "--flat-aggregate", "segment"], PORTED + "flat segment"),
-    (["--dynamic-test", "--model", "gnn", "--visualize"],
-     "--visualize (it draws with matplotlib)"),
+    (["--dynamic-test", "--model", "gnn", "--visualize"], PORTED + "dense segment"),
     (["--dense-chunk", "10", "--parallel", "ep"],
      PORTED + "--dense-chunk is the single-device giant-batch path"),
-    (["--visualize"], "--visualize (it draws with matplotlib)"),
+    (["--visualize"], PORTED + "dense segment"),
+    (["--visualize", "--parallel", "ep"], PORTED + "ep"),
     (["--profile-dir", "p", "--flat-aggregate", "blocked"], PORTED + "flat blocked"),
     (["--dynamic-val", "--n-devices", "4"], PORTED + "flat segment"),
     (["--model", "gnn", "--batch-mode", "flat"], PORTED + "flat segment"),
@@ -154,9 +169,9 @@ PORTED = "ported: "
 ])
 def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch):
     """Flags of code not ported exit naming the flag before any data is
-    read. The flat engines' and the multi-device modes' flags (PORTED)
-    pass unported_flags and choose the flat layout and their engine, or
-    the edge-partitioned path, or exit with the JAX CLI's message."""
+    read. The flat engines', the multi-device modes' and --visualize's
+    flags (PORTED) pass unported_flags and choose the layout and engine,
+    or the edge-partitioned path, or exit with the JAX CLI's message."""
     monkeypatch.chdir(tmp_path)
     if not named.startswith(PORTED):
         with pytest.raises(SystemExit, match=re.escape(named) + ".*not ported"):
@@ -175,10 +190,10 @@ def test_unported_flags_are_refused_by_name(flags, named, tmp_path, monkeypatch)
             assert want == "ep"
     elif want.startswith("--"):
         with pytest.raises(SystemExit, match=re.escape(want)):
-            choose_layouts(args, None)
+            choose_layouts(args, SmallGraphs())
     else:
         mode, engine = want.split()
-        assert choose_layouts(args, None) == (
+        assert choose_layouts(args, SmallGraphs()) == (
             mode, None if engine == "segment" else engine, "unified")
 
 
@@ -267,14 +282,79 @@ def test_ml100k_with_features_matches_jax_cli(tmp_path_factory, tmp_path,
 
 
 def test_unported_flags_name_only_visualize():
-    """Of the JAX CLI's flags, only --visualize is refused: every other one
-    passes unported_flags, the multi-device ones included."""
+    """No flag of the JAX CLI is refused any more: every one passes
+    unported_flags, --visualize and the multi-device ones included."""
     args = build_parser().parse_args(
         ["--parallel", "ep", "--n-devices", "8", "--ep-local-aggregate", "blocked",
-         "--visualize"])
-    assert unported_flags(args) == ["--visualize (it draws with matplotlib)"]
+         "--visualize", "--dynamic-dataset", "--transfer", "x", "--ensemble"])
+    assert unported_flags(args) == []
     args.visualize = False
     assert unported_flags(args) == []
+
+
+def test_source_snapshot_lists_the_cpp_engine(tmp_path):
+    """source_snapshot.txt hashes the C++ extraction engine
+    (native/extract.cpp) beside the Python and CUDA sources, as the JAX
+    package's snapshot lists its .cpp."""
+    res = ResultsDir(str(tmp_path), "ml_1m", "", True)
+    res.snapshot_source()
+    lines = (tmp_path / "ml_1m_testmode" / "source_snapshot.txt").read_text().splitlines()
+    names = {l.split()[-1] for l in lines if not l.startswith("git_revision")}
+    assert {"native/extract.cpp", "cli/main.py", "train/visualize.py",
+            "kernels/csrc/rgcn_aggregate_fwd.cu",
+            "kernels/csrc/rgcn_aggregate_common.cuh"} <= names
+    assert all(re.fullmatch(r"[0-9a-f]{16}", l.split()[0])
+               for l in lines if not l.startswith("git_revision"))
+
+
+VIS = BASE + ["--max-train-num", "60", "--max-test-num", "20", "--epochs", "2",
+              "--save-interval", "1", "--ensemble", "--max-nodes-per-hop", "10"]
+
+
+def test_visualize_through_the_cli(raw, tmp_path, monkeypatch, capsys):
+    """--visualize on --device cpu: after 2 epochs the CLI draws
+    visualization_ml_1m_prediction.pdf (10 panel titles) from the epoch-2
+    checkpoint and ends without the ensemble; with --no-train --transfer
+    from that run it draws again and prints `Transfer learning rmse is:`
+    equal to test_once's line and log.txt's test_once line."""
+    from igmc_torch.utils.pdf import check_pdf
+
+    out = run("port", VIS + ["--visualize"], raw, str(tmp_path / "train"),
+              monkeypatch, capsys)
+    res = tmp_path / "train" / "results" / "ml_1m_testmode"
+    pdf = res / "visualization_ml_1m_prediction.pdf"
+    assert f"saved {os.path.join('results', 'ml_1m_testmode', pdf.name)}" in out
+    assert len(re.findall(r"/F1 20 Tf", check_pdf(str(pdf)))) == 10
+    log = (res / "log.txt").read_text().splitlines()
+    assert [LOG_LINE.match(l).group(1) for l in log] == ["1", "2"]
+    assert not any(l.startswith("Ensemble") for l in out)
+
+    out = run("port", VIS + ["--no-train", "--transfer", str(res), "--visualize"],
+              raw, str(tmp_path / "transfer"), monkeypatch, capsys)
+    tres = tmp_path / "transfer" / "results" / "ml_1m_testmode"
+    assert (tres / "visualization_ml_1m_prediction.pdf").is_file()
+    line = [l for l in out if l.startswith("Transfer learning rmse is: ")]
+    assert len(line) == 1
+    rmse = line[0].split()[-1]
+    assert np.isfinite(float(rmse))
+    assert any(l.startswith(f"Test Once RMSE: {rmse},") for l in out)
+    assert (tres / "log.txt").read_text().splitlines() == [
+        f"Epoch test_once, train loss 0.0000, test rmse {rmse}"]
+
+
+def test_visualize_under_parallel_ep_prints_the_notice_and_goes_on(
+        raw, tmp_path, monkeypatch, capsys):
+    """--visualize --parallel ep prints the JAX CLI's notice and the run
+    goes on: the epochs and the ensemble are logged, nothing is drawn."""
+    out = run("port", VIS + ["--visualize", "--parallel", "ep", "--epochs", "1"],
+              raw, str(tmp_path), monkeypatch, capsys)
+    assert ("--visualize under --parallel ep: rerun without ep (visualization "
+            "evaluates per-subgraph on one device)") in out
+    res = tmp_path / "results" / "ml_1m_testmode"
+    log = (res / "log.txt").read_text().splitlines()
+    assert [LOG_LINE.match(l).group(1) for l in log] == [
+        "1", "ensemble of range(-14, 1, 5)"]
+    assert not list(res.glob("*.pdf"))
 
 
 @pytest.fixture(scope="module")

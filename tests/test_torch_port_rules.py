@@ -1,5 +1,6 @@
 """igmc_torch package rules: nothing of JAX, the JAX package, pandas,
-h5py, matplotlib, flax, tqdm or msgpack is imported (AST scan, and a real import of
+h5py, matplotlib, networkx, flax, tqdm or msgpack is imported (AST scan,
+and a real import of
 every module with those blocked); entry points default to the CUDA device
 and raise without one; TF32 is off once a device is resolved; kernel and
 extraction-engine sources ship with the package."""
@@ -20,7 +21,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "igmc_torch")
 FORBIDDEN = ("jax", "jaxlib", "igmc_tpu", "pandas", "h5py", "matplotlib",
-             "flax", "tqdm", "msgpack")
+             "networkx", "flax", "tqdm", "msgpack")
 # the modules each slice added, which the scans must reach
 PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
                 "igmc_torch.cli.main", "igmc_torch.graphs.native",
@@ -31,7 +32,11 @@ PORT_MODULES = ("igmc_torch.serve", "igmc_torch.cli.predict",
                 "igmc_torch.ops.sort_pool", "igmc_torch.ops.segment",
                 "igmc_torch.ops.blocked", "igmc_torch.parallel.mesh",
                 "igmc_torch.parallel.dp", "igmc_torch.parallel.ep",
-                "igmc_torch.parallel.multihost")
+                "igmc_torch.parallel.multihost", "igmc_torch.utils.pdf",
+                "igmc_torch.utils.progress", "igmc_torch.train.visualize",
+                "igmc_torch.cli.resilient", "igmc_torch.scripts",
+                "igmc_torch.scripts.summarize_fdy",
+                "igmc_torch.scripts.transfer_experiment")
 
 
 def _port_sources():
@@ -135,6 +140,10 @@ def test_kernel_sources_are_packaged_and_build_paths_are_content_hashed(
     pyproject = open(os.path.join(REPO, "pyproject.toml")).read()
     assert '"igmc_torch*"' in pyproject and '"csrc/*.cu"' in pyproject
     assert '"csrc/*.cuh"' in pyproject
+    # the experiment scripts' shell files ship with the package too
+    assert '"igmc_torch.scripts" = ["*.sh"]' in pyproject
+    for script in ("run_fdy.sh", "run_transfer_exps.sh"):
+        assert os.access(os.path.join(PKG, "scripts", script), os.X_OK)
     # an edited shared header rebuilds every kernel
     shutil.copytree(build.CSRC_DIR, tmp_path / "csrc")
     monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path / "csrc"))
