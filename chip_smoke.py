@@ -205,7 +205,22 @@ non-zero:
      the smallest gaps printed), the seconds of prediction and drawing; and
      (c) `python -m igmc_torch.scripts.transfer_experiment --small` in a
      fresh directory, three finite transfer RMSEs. Budget LAST_BUDGET_S,
-     printed.
+     printed;
+ 24. every shape of the JAX package's kernels past the CLI's defaults: (a)
+     at each EVERY_SHAPE (4 and 16 bases at R 71; Cin 48 /
+     Cout 64; Cin 6 / Cout 256, past one relation's shared memory in K2
+     untiled; Cin 200 / Cout 40 / 12 bases; rows 128 with eblk 1,000 and
+     1,001) on test batch 0's edges, K1 and K2 with dx on and off against
+     their float64 plain versions at phase 4's tolerances, each one's time
+     per call (CUDA events), device time (profiler), plain time and share
+     of its bound; (b) `python -m igmc_torch.cli.main --data-name
+     yahoo_music --testing --batch-mode flat --flat-aggregate pallas
+     --num-bases 16 --epochs 1` on the Monti fixture (R 71) in this
+     process, a finite RMSE in log.txt and K1 / K2 launching 4 x (training
+     + test batches) / 4 x training batches; (c) a training step of IGMC
+     with WIDE_STEP (Cin 64, 16 bases, pallas_rows 128) over blocks of
+     WIDE_STEP_EBLK slots on yahoo_music, card against CPU at phase 7's
+     gates, K1 / K2 launching 4 times each. Budget SHAPES_BUDGET_S, printed.
 The last lines are one JSON object of kernel numbers, the card's
 `nvidia-smi` line, and `{"ok": true, "device": {...}}`.
 """
@@ -317,6 +332,28 @@ SUPERVISED_CLI = ["--data-name", "ml_100k", "--testing", "--epochs", "3",
 LAST_BUDGET_S = 150
 # SortPool keys (the DGCNN trunk's last channel, tanh) card vs CPU
 KEY_ATOL = 1e-5
+# phase 24: shapes of the JAX package's Pallas kernels past the CLI's
+# defaults (more than 8 bases, widths past 32, other rows and eblk), each on
+# ML-1M test batch 0's edges (relations redrawn over R when R is not the
+# batch's 5): name -> (R, B, Cin, Cout, rows, eblk). The first is
+# yahoo_music's shape at the CLI's 4 bases, timed as the reference of the
+# 16-base row
+EVERY_SHAPE = {
+    "b4_cin32_cout32_r71": (71, 4, 32, 32, 256, 1024),
+    "b16_cin32_cout32_r71": (71, 16, 32, 32, 256, 1024),
+    "b4_cin48_cout64_r5": (5, 4, 48, 64, 256, 1024),
+    "b1_cin6_cout256_r10": (10, 1, 6, 256, 256, 1024),
+    "b12_cin200_cout40_r5": (5, 12, 200, 40, 256, 1024),
+    "b4_cin32_cout32_rows128_eblk1000": (5, 4, 32, 32, 128, 1000),
+    "b4_cin32_cout32_rows128_eblk1001": (5, 4, 32, 32, 128, 1001),
+}
+# phase 24 (b): the CLI's flags past --data-name yahoo_music --testing, the
+# setting the JAX CLI gives for high-R studies; (c) the wide training step
+SHAPES_CLI = ["--batch-mode", "flat", "--flat-aggregate", "pallas",
+              "--num-bases", "16", "--epochs", "1"]
+WIDE_STEP = dict(latent_dim=(64, 64, 64, 64), num_bases=16, pallas_rows=128)
+WIDE_STEP_EBLK = 256
+SHAPES_BUDGET_S = 60
 MAX_NUM = 2000                   # held-out pairs scored, training pairs
 BATCH_SIZE = 50                  # the CLI's default batch
 CPU_BATCHES = 5                  # batches held against the CPU plain path
@@ -413,7 +450,7 @@ def _edges(plan, rows: int):
     return a0, scatter, etype, mask != 0
 
 
-def aggregate_bound(x, att, basis, aligned):
+def aggregate_bound(x, att, basis, aligned, rows=ROWS):
     """Least time (ms) for one K1 call on this card, from this call's inputs:
     the larger of its bytes over the memory rate and its float32 operations
     over the CUDA-core rate, counting the least work the function needs,
@@ -428,7 +465,7 @@ def aggregate_bound(x, att, basis, aligned):
     operations of K1's basis-mix form (2*E*B*Cin*Cout), for comparison."""
     nb, cin, cout = basis.shape
     n, nrel = x.shape[0], att.shape[0]
-    src, _, etype, live = _edges(aligned, ROWS)
+    src, _, etype, live = _edges(aligned, rows)
     e = int(live.sum())
     pairs = _pairs(src, etype, live, nrel)
     flops = (min(2.0 * e * cin * cout, 2.0 * pairs * cin * cout + e * cout)
@@ -439,7 +476,7 @@ def aggregate_bound(x, att, basis, aligned):
                 form_ms=1e3 * 2.0 * e * nb * cin * cout / PEAK_F32_FLOP_PER_S)
 
 
-def aggregate_bwd_bound(x, att, basis, plan_t, need_dx: bool):
+def aggregate_bwd_bound(x, att, basis, plan_t, need_dx: bool, rows=ROWS):
     """Least time (ms) for one K2 call on this card, as aggregate_bound
     counts it. Operations: dx is the forward with src and dst swapped,
     min(2*E*Cin*Cout, 2*P_dst*Cin*Cout + E*Cin) with P_dst the distinct
@@ -452,7 +489,7 @@ def aggregate_bwd_bound(x, att, basis, plan_t, need_dx: bool):
     operations of the TPU kernel's basis form (4*E*B*Cin*Cout)."""
     nb, cin, cout = basis.shape
     n, nrel = x.shape[0], att.shape[0]
-    dst, src, etype, live = _edges(plan_t, ROWS)
+    dst, src, etype, live = _edges(plan_t, rows)
     e = int(live.sum())
     p_src, p_dst = _pairs(src, etype, live, nrel), _pairs(dst, etype, live, nrel)
     per_edge = 2.0 * e * cin * cout
@@ -610,6 +647,25 @@ def check_k1(b0, R, B, COUT, dev, gen):
     return results, max_err
 
 
+def bwd_errors(got, want, terms, where: str) -> dict:
+    """K2's (dx or None, datt, dbasis) against the float64 plain version:
+    fails unless each entry is within TERMS_RTOL of its sum of |terms|
+    (+1e-7); returns each output's max abs error."""
+    errs = {}
+    for name, gv, wv, tv in zip(("dx", "datt", "dbasis"), got, want, terms):
+        if gv is None:
+            continue
+        err = (gv.double() - wv).abs()
+        errs[name] = float(err.max())
+        over = err - (TERMS_RTOL * tv + 1e-7)
+        if float(over.max()) > 0:
+            i = int(over.argmax())
+            fail(f"rgcn_aggregate_bwd {name} disagrees with the plain version "
+                 f"{where}: entry {i} {float(gv.flatten()[i])} vs "
+                 f"{float(wv.flatten()[i])}, sum of |terms| {float(tv.flatten()[i])}")
+    return errs
+
+
 def check_k2(bt, b0, R, B, COUT, dev, gen):
     """K2 against its float64 plain version on the training batch's twin
     plan, a hot source row, extra padding and test batch 0's edges over
@@ -640,21 +696,13 @@ def check_k2(bt, b0, R, B, COUT, dev, gen):
                                                att.double().abs(),
                                                basis.double().abs(), plan, ROWS)
             torch.cuda.synchronize()
-            errs = []
-            for name, gv, wv, tv in zip(names, got, want, terms):
-                err = (gv.double() - wv).abs()
-                errs.append(float(err.max()))
-                max_err[name] = max(max_err[name], errs[-1])
-                over = err - (TERMS_RTOL * tv + 1e-7)
-                if float(over.max()) > 0:
-                    i = int(over.argmax())
-                    fail(f"rgcn_aggregate_bwd {name} disagrees with the plain "
-                         f"version on {plan_name} cin={cin}: entry {i} "
-                         f"{float(gv.flatten()[i])} vs {float(wv.flatten()[i])}, "
-                         f"sum of |terms| {float(tv.flatten()[i])}")
+            errs = bwd_errors(got, want, terms, f"on {plan_name} cin={cin}")
+            for name in names:
+                max_err[name] = max(max_err[name], errs[name])
             line = (f"[kernel] rgcn_aggregate_bwd {plan_name} (R {nrel}) cin={cin}: "
-                    f"max_abs_err dx {errs[0]:.3e}, datt {errs[1]:.3e}, dbasis "
-                    f"{errs[2]:.3e} (within {TERMS_RTOL} of each entry's sum of |terms|)")
+                    f"max_abs_err dx {errs['dx']:.3e}, datt {errs['datt']:.3e}, "
+                    f"dbasis {errs['dbasis']:.3e} (within {TERMS_RTOL} of each "
+                    f"entry's sum of |terms|)")
             if plan_name == "ml1m_train_batch0":
                 need_dx = cin != 4     # layer 1's one-hot input needs no dx
                 with torch.no_grad():
@@ -3009,6 +3057,165 @@ def last_modules_phase(raw_data, cwd12, cli_wall, work, smi, reset_counts,
     return out
 
 
+def _shape_kernels(b0, R_batch, name, spec, dev, gen):
+    """Phase 24 (a) at one shape: K1, and K2 with dx on and off, against
+    their float64 plain versions on test batch 0's edges planned with the
+    shape's rows and eblk (its relations redrawn over R where R is not the
+    batch's R_batch); each one's time per call (CUDA events) and K1's
+    and K2's (dx on) device time per launch, the plain versions' times in
+    float32 and the bounds."""
+    import torch
+    from igmc_torch.kernels.rgcn_aggregate import (
+        block_align_edges, block_align_edges_transposed, rgcn_aggregate,
+        rgcn_aggregate_bwd, rgcn_aggregate_bwd_ref, rgcn_aggregate_ref)
+
+    R, B, cin, cout, rows, eblk = spec
+    N = b0.num_nodes
+    etype = b0.edge_type.numpy()
+    if R != R_batch:
+        rng = torch.Generator().manual_seed(R)
+        etype = torch.randint(0, R, etype.shape, generator=rng,
+                              dtype=torch.int32).numpy()
+    edges = (b0.edge_src.numpy(), b0.edge_dst.numpy(), etype, b0.edge_mask.numpy(), N)
+    plan = tuple(torch.as_tensor(a).to(dev)
+                 for a in block_align_edges(*edges, eblk=eblk, rows=rows)[:6])
+    plan_t = tuple(torch.as_tensor(a).to(dev)
+                   for a in block_align_edges_transposed(*edges, eblk=eblk,
+                                                         rows=rows)[:6])
+    x, att, basis, g = (t.to(dev) for t in operands(b0, cin, R, B, cout, gen))
+    out = {"shape": f"R {R}, B {B}, Cin {cin}, Cout {cout}, rows {rows}, eblk {eblk}, "
+                    f"N {N}, {plan[0].numel()} edge slots"}
+    with torch.no_grad():
+        got = rgcn_aggregate(x, att, basis, plan, rows, N)
+        want = rgcn_aggregate_ref(x.double(), att.double(), basis.double(), plan,
+                                  rows, N).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        try:
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        except AssertionError as e:
+            fail(f"rgcn_aggregate_fwd disagrees with the plain version at {name}: {e}")
+        del got, want
+        call = lambda: rgcn_aggregate(x, att, basis, plan, rows, N)
+        out["fwd"] = dict(max_abs_err=err, ms=cuda_ms(call, 20),
+                          device_ms=kernel_ms(call, "rgcn_aggregate_fwd", 20),
+                          plain_ms=cuda_ms(lambda: rgcn_aggregate_ref(
+                              x, att, basis, plan, rows, N), 5),
+                          **aggregate_bound(x, att, basis, plan, rows))
+        args64 = [a.double() for a in (g, x, att, basis)]
+        want = rgcn_aggregate_bwd_ref(*args64, plan_t, rows)
+        terms = rgcn_aggregate_bwd_ref(*(a.abs() for a in args64), plan_t, rows)
+        del args64
+        for need_dx in (True, False):
+            got = rgcn_aggregate_bwd(g, x, att, basis, plan_t, rows, need_dx=need_dx)
+            torch.cuda.synchronize()
+            errs = bwd_errors(got, want, terms,
+                              f"at {name}, dx {'on' if need_dx else 'off'}")
+            call = lambda: rgcn_aggregate_bwd(g, x, att, basis, plan_t, rows,
+                                              need_dx=need_dx)
+            key = "bwd" if need_dx else "bwd_no_dx"
+            out[key] = dict(max_abs_err=max(errs.values()), errs=errs,
+                            ms=cuda_ms(call, 20),
+                            **aggregate_bwd_bound(x, att, basis, plan_t, need_dx, rows))
+            if need_dx:
+                out[key]["device_ms"] = kernel_ms(call, "rgcn_aggregate_bwd", 20)
+                out[key]["plain_ms"] = cuda_ms(lambda: rgcn_aggregate_bwd_ref(
+                    g, x, att, basis, plan_t, rows), 5)
+        del want, terms
+    for key, label in (("fwd", "rgcn_aggregate_fwd"), ("bwd", "rgcn_aggregate_bwd dx on"),
+                       ("bwd_no_dx", "rgcn_aggregate_bwd dx off")):
+        r = out[key]
+        extra = "".join(f", {k} {r[k]:.4f} ms" for k in ("device_ms", "plain_ms") if k in r)
+        print(f"[shapes] {name} {label}: max_abs_err {r['max_abs_err']:.3e}; "
+              f"{r['ms']:.4f} ms per call{extra}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f}% of it", flush=True)
+    return out
+
+
+def every_shape_phase(b0, R_batch, dev, work, smi, reset_counts, read_counts, expect):
+    """Phase 24: the shapes of the JAX package's Pallas kernels beyond the
+    CLI's defaults. (a) K1 and K2 at each EVERY_SHAPE against their float64
+    plain versions, timed; (b) the CLI with SHAPES_CLI on the yahoo_music
+    fixture (R 71) in this process, its K1 / K2 launches counted; (c) a card
+    vs CPU training step of WIDE_STEP IGMC over plans of 128 rows and blocks
+    of WIDE_STEP_EBLK slots. Returns the numbers it measured."""
+    import contextlib
+    import io
+
+    import torch
+    from igmc_torch.batching import BatchLoader, StaticGraphDataset
+    from igmc_torch.cli.main import main as cli_main
+    from igmc_torch.data import load_data_monti
+    from igmc_torch.models import IGMCConfig
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(24)
+    out = {"shapes": {name: _shape_kernels(b0, R_batch, name, spec, dev, gen)
+                      for name, spec in EVERY_SHAPE.items()}}
+    torch.cuda.empty_cache()
+
+    # (b) the CLI in this process, so that its launches are counted here
+    raw_before, cwd_before = os.environ.get("IGMC_RAW_DATA"), os.getcwd()
+    os.environ["IGMC_RAW_DATA"] = MONTI_ROOT
+    split = load_data_monti("yahoo_music", testing=True)
+    n_train = -(-len(split.train_labels) // BATCH_SIZE)
+    n_test = -(-len(split.test_labels) // BATCH_SIZE)
+    cwd = os.path.join(work, "shapes_cli")
+    os.makedirs(cwd)
+    argv = ["--data-name", "yahoo_music", "--testing"] + SHAPES_CLI
+    reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(buf):
+            cli_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd_before)
+        if raw_before is None:
+            os.environ.pop("IGMC_RAW_DATA")
+        else:
+            os.environ["IGMC_RAW_DATA"] = raw_before
+    cli_s = time.perf_counter() - t0
+    read_counts("shapes_cli")
+    lines = buf.getvalue().splitlines()
+    if "batch mode: flat (--flat-aggregate pallas)" not in lines:
+        fail(f"the yahoo_music CLI did not run the pallas engine: {lines[-20:]}")
+    rmses = _check_log(cwd, "yahoo_music", ["Epoch 1,"], "shapes cli")
+    print(f"[shapes] cli {' '.join(argv)} in this process: {cli_s:.2f} s; "
+          f"{n_train} training and {n_test} test batches", flush=True)
+    expect("shapes_cli", "rgcn_aggregate_fwd", 4 * (n_train + n_test))
+    expect("shapes_cli", "rgcn_aggregate_bwd", 4 * n_train)
+    out["cli"] = {"seconds": cli_s, "rmse": rmses[0], "train_batches": n_train,
+                  "test_batches": n_test}
+
+    # (c) widths past 32, 16 bases, 128-row chunks, 256-slot blocks
+    R = len(split.class_values)
+    ds = StaticGraphDataset(split.adj_train, (split.train_u_indices,
+                                              split.train_v_indices),
+                            split.train_labels, h=1, class_values=split.class_values,
+                            max_num=BATCH_SIZE, backend="native")
+    batch = next(iter(BatchLoader(ds, BATCH_SIZE, shuffle=True, seed=1,
+                                  flat_aggregate="pallas",
+                                  plan_rows=WIDE_STEP["pallas_rows"],
+                                  plan_eblk=WIDE_STEP_EBLK)))
+    cfg = IGMCConfig(num_features=4, num_relations=R, adj_dropout=0.2,
+                     flat_aggregate="pallas", **WIDE_STEP)
+    reset_counts()
+    loss_rel, grad_rel = card_vs_cpu_step(cfg, batch, "shapes card vs CPU")
+    read_counts("shapes_step")
+    expect("shapes_step", "rgcn_aggregate_fwd", len(cfg.latent_dim))
+    expect("shapes_step", "rgcn_aggregate_bwd", len(cfg.latent_dim))
+    out["step"] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "relations": R,
+                   "nodes": batch.num_nodes, "blocks": int(batch.aligned[4].numel())}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[shapes] {smi}: phase seconds {out['seconds']:.2f} (budget "
+          f"{SHAPES_BUDGET_S} s{'' if out['seconds'] <= SHAPES_BUDGET_S else ', OVER'})",
+          flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--raw-data", default=os.environ.get("IGMC_RAW_DATA")
@@ -3358,6 +3565,11 @@ def main() -> None:
             last = last_modules_phase(args.raw_data, cwd_cli, cli_wall, work, smi,
                                       reset_counts, read_counts, expect)
 
+        # ---- 24. every shape of the JAX package's kernels ------------------------
+        with phase("every shape"):
+            shapes = every_shape_phase(batches[0], R, dev, work, smi, reset_counts,
+                                       read_counts, expect)
+
     def entry(name, source, replaces, res, err, extra):
         r32 = res[32]
         return {
@@ -3376,13 +3588,29 @@ def main() -> None:
             **extra,
         }
 
+    sources = {"rgcn_aggregate_fwd": ("igmc_torch/kernels/csrc/rgcn_aggregate_fwd.cu",
+                                      "igmc_tpu/kernels/rgcn_aggregate.py:170"),
+               "rgcn_aggregate_bwd": ("igmc_torch/kernels/csrc/rgcn_aggregate_bwd.cu",
+                                      "igmc_tpu/kernels/rgcn_aggregate.py:236")}
     kernels = [
-        entry("rgcn_aggregate_fwd", "igmc_torch/kernels/csrc/rgcn_aggregate_fwd.cu",
-              "igmc_tpu/kernels/rgcn_aggregate.py:170", k1, k1_err, {}),
-        entry("rgcn_aggregate_bwd", "igmc_torch/kernels/csrc/rgcn_aggregate_bwd.cu",
-              "igmc_tpu/kernels/rgcn_aggregate.py:236", k2, max(k2_err.values()),
-              {f"max_abs_err_{k}": v for k, v in k2_err.items()}),
+        entry("rgcn_aggregate_fwd", *sources["rgcn_aggregate_fwd"], k1, k1_err, {}),
+        entry("rgcn_aggregate_bwd", *sources["rgcn_aggregate_bwd"], k2,
+              max(k2_err.values()), {f"max_abs_err_{k}": v for k, v in k2_err.items()}),
     ]
+    # phase 24's shapes: launches are the counts of its CLI run and step
+    for shape, r in shapes["shapes"].items():
+        for name, key in (("rgcn_aggregate_fwd", "fwd"), ("rgcn_aggregate_bwd", "bwd")):
+            kernels.append({
+                "name": name, "route": "cuda", "source": sources[name][0],
+                "replaces": sources[name][1],
+                "launches": sum(launches[p][name] for p in ("shapes_cli", "shapes_step")),
+                "max_abs_err": r[key]["max_abs_err"], "ms": r[key]["ms"],
+                "plain_ms": r[key]["plain_ms"], "bound_ms": r[key]["bound_ms"],
+                "bound_by": r[key]["bound_by"], "library_ms": None,
+                "device_ms": r[key]["device_ms"], "shape": f"{shape}: {r['shape']}",
+                **({"dx_off_ms": r["bwd_no_dx"]["ms"],
+                    "dx_off_bound_ms": r["bwd_no_dx"]["bound_ms"]} if key == "bwd" else {}),
+            })
     total = time.perf_counter() - phase.t0
     print(f"[time] total {total:.2f} s ("
           + ", ".join(f"{k} {v:.2f}" for k, v in phase.seconds.items()) + ")")
@@ -3394,6 +3622,7 @@ def main() -> None:
     print(f"[flat] numbers: {json.dumps(flat)}")
     print(f"[multi] numbers: {json.dumps(multi)}")
     print(f"[last] numbers: {json.dumps(last)}")
+    print(f"[shapes] numbers: {json.dumps(shapes)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -62,6 +62,9 @@ class GraphBatch:
     # its src-sorted twin (block_align_edges_transposed), same layout, for
     # the aggregate's gradient: attached by training loaders only
     aligned_t: Optional[Tuple[torch.Tensor, ...]] = None
+    # the output-chunk rows both plans were built with (BatchLoader's
+    # plan_rows), which the model's pallas_rows must equal
+    plan_rows: Optional[int] = None
     # the blocked engine's dst- and src-major plans (ops/blocked.py
     # BlockedEdges), attached by BatchLoader(flat_aggregate="blocked")
     blocked: Optional[object] = None
@@ -87,6 +90,8 @@ class GraphBatch:
             v = getattr(self, f.name)
             if f.name == "blocked":
                 moved[f.name] = None if v is None else v.to(device, non_blocking)
+            elif f.name == "plan_rows":
+                moved[f.name] = v
             elif isinstance(v, tuple):
                 moved[f.name] = tuple(a.to(device, non_blocking=non_blocking)
                                       for a in v)

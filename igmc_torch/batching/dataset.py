@@ -339,11 +339,13 @@ class BatchLoader:
     plan; "blocked" the blocked engine's plans (batch.blocked) and
     "pallas" the aggregate kernel's (batch.aligned), both sized by
     plan_capacity_blocks so every batch of one bucket has the same plan
-    shape; with "pallas" node_pad is rounded up to a multiple of PLAN_ROWS
-    (the kernel's output chunk). `batch_mode="dense"` yields unified-layout
-    DenseBatches whose node and edge slots come from per-graph ladders,
-    carrying `edge_id` (collate_dense; a static dataset's is the packed
-    edge index). The ladders cover the dataset's worst case when it has
+    shape, with output chunks of `plan_rows` node rows and blocks of
+    `plan_eblk` edge slots (the JAX package's names and defaults); with
+    "pallas" node_pad is rounded up to a multiple of plan_rows (the
+    kernel's output chunk) and the batch carries plan_rows.
+    `batch_mode="dense"` yields unified-layout DenseBatches whose node and
+    edge slots come from per-graph ladders, carrying `edge_id`
+    (collate_dense; a static dataset's is the packed edge index). The ladders cover the dataset's worst case when it has
     counts (a static dataset); else they are estimated from 64 evenly
     spaced graphs, and a batch above them extends them geometrically
     (`ladder_overflows` counts it, and a warning says so).
@@ -382,7 +384,8 @@ class BatchLoader:
                  pin_memory: bool = False, flat_aggregate: Optional[str] = None,
                  node_ladder: Optional[Sequence[int]] = None,
                  edge_ladder: Optional[Sequence[int]] = None,
-                 n_devices: int = 0, rank: int = 0):
+                 n_devices: int = 0, rank: int = 0, plan_rows: int = PLAN_ROWS,
+                 plan_eblk: int = PLAN_EBLK):
         if n_devices > 1 and batch_size % n_devices:
             raise ValueError(
                 f"batch_size {batch_size} must divide by n_devices {n_devices}")
@@ -402,7 +405,11 @@ class BatchLoader:
                              f"path (DP sub-batches carry no plans)")
         if (node_ladder is None) != (edge_ladder is None):
             raise ValueError("pass both node_ladder and edge_ladder, or neither")
+        if plan_rows < 1 or plan_eblk < 1:
+            raise ValueError(f"plan_rows {plan_rows} and plan_eblk {plan_eblk} "
+                             f"must be positive")
         self.flat_aggregate = flat_aggregate
+        self.plan_rows, self.plan_eblk = plan_rows, plan_eblk
         self.n_devices = n_devices
         self.rank = rank
         self.dataset = dataset
@@ -486,22 +493,24 @@ class BatchLoader:
                                 self.edge_ladder, "edge")
         if self.flat_aggregate == "pallas":
             # the kernel's output chunking needs num_nodes % rows == 0
-            node_pad = -(-node_pad // PLAN_ROWS) * PLAN_ROWS
+            node_pad = -(-node_pad // self.plan_rows) * self.plan_rows
         packed = getattr(self.dataset, "packed", None)
         batch = collate(graphs, self.batch_size, node_pad, edge_pad, gids=idxs,
                         edge_offsets=None if packed is None else packed.edge_offsets)
         if self.flat_aggregate is None:
             return batch
-        nb = plan_capacity_blocks(node_pad, edge_pad, PLAN_ROWS, PLAN_EBLK)
+        rows, eblk = self.plan_rows, self.plan_eblk
+        nb = plan_capacity_blocks(node_pad, edge_pad, rows, eblk)
         if self.flat_aggregate == "blocked":
             batch.blocked = plan_blocked_edges(
                 batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
-                batch.edge_canon, node_pad, PLAN_ROWS, PLAN_EBLK, num_blocks=nb)
+                batch.edge_canon, node_pad, rows, eblk, num_blocks=nb)
             return batch
         edges = (batch.edge_src.numpy(), batch.edge_dst.numpy(),
                  batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad)
-        plan_kw = dict(eblk=PLAN_EBLK, rows=PLAN_ROWS, num_blocks=nb,
+        plan_kw = dict(eblk=eblk, rows=rows, num_blocks=nb,
                        edge_canon=batch.edge_canon.numpy())
+        batch.plan_rows = rows
         # (src, dst_local, etype, mask, chunk_of_block, first_of_chunk, ukey)
         plan = block_align_edges(*edges, **plan_kw)
         batch.aligned = tuple(torch.from_numpy(a) for a in plan[:6] + plan[7:])

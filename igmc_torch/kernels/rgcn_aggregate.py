@@ -18,7 +18,12 @@ csrc/rgcn_aggregate_bwd.cu for CUDA tensors (`rgcn_aggregate_bwd`), and
 Both kernels compute in the run form: the plans order each row's edges by
 relation, so the kernels sum the gathered rows of each (row, relation) run
 and take one product with W_r = att[r] @ basis per run, not one basis mix
-per edge (the kernels' headers say how).
+per edge (the kernels' headers say how). They take every shape the JAX
+package's Pallas kernels take: any Cin, Cout and number of bases (channels
+in 32-wide tiles, one pass over a chunk per tile pair), any relation count,
+any block size `eblk` and any `rows` whose shared-memory accumulator fits
+the card (up to 5,144 rows on an H100, 6,044 for the forward alone; above
+it the wrapper raises, naming the shape).
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import torch
 # Host-side block alignment
 # ---------------------------------------------------------------------------
 
-# The plan's geometry: output chunks of PLAN_ROWS node rows (the CUDA
-# kernel's shared-memory accumulator) and blocks of PLAN_EBLK edge slots.
+# The plan's default geometry, the JAX package's: output chunks of
+# PLAN_ROWS node rows (the CUDA kernels' shared-memory accumulator) and
+# blocks of PLAN_EBLK edge slots. BatchLoader(plan_rows=, plan_eblk=) and
+# IGMCConfig.pallas_rows set others.
 PLAN_ROWS = 256
 PLAN_EBLK = 1024
 
@@ -220,8 +227,6 @@ def rgcn_aggregate_bwd_ref(g, x, att, basis, aligned_t, rows: int):
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-_MAX_WIDTH = 32    # both kernels: one lane per input and per output channel
-_MAX_BASES = 8     # both kernels fold W_r from 1..8 bases
 _N_ARGS = {"rgcn_aggregate_fwd": (9, 8), "rgcn_aggregate_bwd": (13, 9)}
 _libs = {}
 
@@ -277,10 +282,6 @@ def _check_plan(what, plan, device, ep=None):
     if nblk == 0 or ep % nblk:
         raise ValueError(f"rgcn_aggregate: {ep} {what} edges do not split "
                          f"into {nblk} blocks")
-    # the kernels read the mask 16 bytes at a time from each block's start
-    if (ep // nblk) % 4 or (plan[3].device.type == "cuda" and plan[3].data_ptr() % 16):
-        raise ValueError(f"rgcn_aggregate: {what} blocks of {ep // nblk} slots "
-                         f"or its mask is not 16-byte aligned")
     for name, t in zip(names[:4], plan[:4]):
         if t.shape != (ep,):
             raise ValueError(f"rgcn_aggregate: {what} {name} shape "
@@ -302,12 +303,9 @@ def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes, aligned_t=None):
         raise ValueError(f"rgcn_aggregate: x {tuple(x.shape)} != ({num_nodes}, {cin})")
     if att.dim() != 2 or att.shape[1] != nb:
         raise ValueError(f"rgcn_aggregate: att {tuple(att.shape)} has not {nb} bases")
-    if cin > _MAX_WIDTH or cout > _MAX_WIDTH:
-        raise ValueError(f"rgcn_aggregate: the kernels take Cin <= {_MAX_WIDTH} "
-                         f"and Cout <= {_MAX_WIDTH}, got {cin} and {cout}")
-    if not 1 <= nb <= _MAX_BASES:
-        raise ValueError(f"rgcn_aggregate: the kernel takes 1 to {_MAX_BASES} "
-                         f"bases, got {nb}")
+    if min(nb, cin, cout, att.shape[0]) < 1:
+        raise ValueError(f"rgcn_aggregate: empty weights: basis {tuple(basis.shape)}, "
+                         f"att {tuple(att.shape)}")
     if num_nodes % rows:
         raise ValueError(f"rgcn_aggregate: num_nodes {num_nodes} % rows {rows} != 0")
     _check_plan("aligned", aligned, x.device)
@@ -316,13 +314,21 @@ def _check_cuda_inputs(x, att, basis, aligned, rows, num_nodes, aligned_t=None):
         _check_plan("aligned_t", aligned_t, x.device, aligned[0].shape[0])
 
 
-def _launch(name, ptrs, ints, device):
+def _launch(name, ptrs, ints, device, shape: str):
     """Launch kernel `name` on the current stream of `device`; raises if
-    the launch fails (the kernel sizes its own shared memory)."""
+    the launch fails. The kernel sizes its own shared memory; a shape
+    (`shape` says it) whose smallest need exceeds the card's comes back as
+    minus the bytes needed, before any launch."""
     lib = _kernel_lib(name)
     with torch.cuda.device(device):
         err = getattr(lib, name)(*ptrs, *ints,
                                  torch.cuda.current_stream(device).cuda_stream)
+    if err < 0:
+        have = getattr(torch.cuda.get_device_properties(device),
+                       "shared_memory_per_block_optin", "fewer")
+        raise ValueError(f"{name}: {shape} needs {-err} bytes of shared memory "
+                         f"per block; this card gives a block {have}: plan "
+                         f"fewer rows")
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
@@ -342,7 +348,8 @@ def _aggregate_fwd(x, att, basis, aligned, rows: int, num_nodes: int):
              dstl.data_ptr(), etype.data_ptr(), mask.data_ptr(),
              chunk_of_block.data_ptr(), out.data_ptr()),
             (num_nodes, cin, cout, nb, att.shape[0], rows, nblk,
-             src.shape[0] // nblk), x.device)
+             src.shape[0] // nblk), x.device,
+            f"rows {rows} (Cin {cin}, Cout {cout})")
     rgcn_aggregate.launches += 1
     return out
 
@@ -440,7 +447,8 @@ def rgcn_aggregate_bwd(g, x, att, basis, aligned_t, rows: int,
              chunk_of_block.data_ptr(), dx.data_ptr() if need_dx else 0,
              datt.data_ptr(), dbasis.data_ptr(), work.data_ptr()),
             (num_nodes, cin, cout, nb, nrel, rows, nblk, gdst.shape[0] // nblk,
-             int(need_dx)), g.device)
+             int(need_dx)), g.device,
+            f"rows {rows} (Cin {cin}, Cout {cout}, dx {'on' if need_dx else 'off'})")
     rgcn_aggregate_bwd.launches += 1
     return dx, datt, dbasis
 

@@ -86,6 +86,7 @@ class IGMCConfig:
     dense_strategy: str = "auto"           # DENSE_STRATEGIES
     compute_dtype: Optional[str] = None    # None (float32) or "bfloat16"
     flat_aggregate: str = "segment"        # flat engine: FLAT_AGGREGATES
+    pallas_rows: int = PLAN_ROWS           # output-chunk rows of the aggregate kernels
 
 
 def _linear(in_features: int, out_features: int,
@@ -218,6 +219,10 @@ class IGMC(nn.Module):
             raise ValueError("flat_aggregate='pallas' needs the batch's aligned "
                              "edge plan (BatchLoader(flat_aggregate='pallas') "
                              "attaches it)")
+        rows = cfg.pallas_rows
+        if batch.plan_rows is not None and batch.plan_rows != rows:
+            raise ValueError(f"IGMCConfig.pallas_rows {rows} != the batch's plan "
+                             f"rows {batch.plan_rows} (BatchLoader(plan_rows=))")
         if self.training and cfg.adj_dropout > 0:
             aligned = _drop_edges(aligned, edge_seed, cfg)
             if aligned_t is not None:
@@ -227,11 +232,11 @@ class IGMC(nn.Module):
         if cfg.aggr == "mean":
             amask = aligned[3]       # the degree counts the kept edges only
             deg = torch.zeros(N, dtype=amask.dtype, device=amask.device)
-            deg.index_add_(0, _dst_global(aligned, PLAN_ROWS), amask)
+            deg.index_add_(0, _dst_global(aligned, rows), amask)
             inv_deg = (1.0 / deg.clamp_min(1.0))[:, None]
         return self._summed_layers(
             batch, lambda conv, x: rgcn_aggregate(x, conv.att, conv.basis, aligned,
-                                                  PLAN_ROWS, N, aligned_t),
+                                                  rows, N, aligned_t),
             inv_deg)
 
     def _summed_layers(self, batch: GraphBatch, aggregate, inv_deg) -> List[torch.Tensor]:

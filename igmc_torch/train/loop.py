@@ -512,6 +512,13 @@ def _flat_model(model, engine: str):
     return model
 
 
+def _plan_geometry(model, engine: str) -> dict:
+    """The loader's plan geometry for the flat engine `engine`: the pallas
+    engine's plans are chunked by the model's cfg.pallas_rows, which the
+    forward requires; the other engines keep the loader's default."""
+    return dict(plan_rows=model.cfg.pallas_rows) if engine == "pallas" else {}
+
+
 def _check_host_layout(dense_layout: str):
     if dense_layout != "unified":
         raise ValueError(f"dense_layout={dense_layout!r} needs static (packed) "
@@ -599,7 +606,8 @@ def test_once(
         loader = BatchLoader(test_dataset, batch_size, batch_mode=batch_mode,
                              pin_memory=dev.type == "cuda",
                              flat_aggregate=(None if batch_mode == "dense"
-                                             else flat_aggregate))
+                                             else flat_aggregate),
+                             **_plan_geometry(model, engine))
         rmse_of = lambda m: eval_rmse(make_eval_step(m), loader, dev)
     t_start = time.perf_counter()
     if ensemble and checkpoints:
@@ -757,7 +765,8 @@ def train_multiple_epochs(
                   pin_memory=dev.type == "cuda",
                   flat_aggregate=None if host_dense else flat_aggregate,
                   n_devices=0 if mesh is None else D,
-                  rank=0 if mesh is None else mesh.rank)
+                  rank=0 if mesh is None else mesh.rank,
+                  **_plan_geometry(model, engine))
         train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
                                    seed=seed, **kw)
         test_loader = BatchLoader(test_dataset, batch_size, **kw)

@@ -231,13 +231,17 @@ def test_gradient_without_twin_plan_raises():
 
 
 def test_cuda_checks_refuse_wide_input_for_the_backward():
-    """The kernels take Cin <= 32 (one lane per input channel): a gradient
-    wanted at Cin 40 raises before any launch."""
+    """A gradient wanted at Cin 40 (past one 32-lane tile, which the kernels
+    take since they tile their channels) is refused before any launch only
+    for what no kernel takes: a twin plan whose edge count differs from the
+    forward plan's. With the matching twin plan the checks pass."""
     N, R, B, Cin, Cout, rows = 64, 5, 4, 40, 16, 16
     _, af, at = _plans("random", 0, N, R, rows, 64, seed=4)
     x, att, basis, _ = _operands(N, R, B, Cin, Cout, seed=4)
-    with pytest.raises(ValueError, match="Cin <= 32"):
-        _check_cuda_inputs(torch.from_numpy(x).requires_grad_(True),
-                           torch.from_numpy(att), torch.from_numpy(basis),
-                           tuple(map(torch.from_numpy, af)), rows, N,
-                           tuple(map(torch.from_numpy, at)))
+    args = (torch.from_numpy(x).requires_grad_(True), torch.from_numpy(att),
+            torch.from_numpy(basis), tuple(map(torch.from_numpy, af)), rows, N)
+    short = tuple(torch.from_numpy(a[:-64]) for a in at[:4]) + tuple(
+        torch.from_numpy(a[:-1]) for a in at[4:6])
+    with pytest.raises(ValueError, match="aligned_t"):
+        _check_cuda_inputs(*args, short)
+    _check_cuda_inputs(*args, tuple(map(torch.from_numpy, at)))

@@ -30,6 +30,7 @@ from igmc_torch.models import IGMC, IGMCConfig
 from igmc_torch.models.rgcn import RGCNConv, rgcn_apply
 from igmc_torch.ops import blocked as pb
 from igmc_torch.train import loss_fn, params_from_jax, train_multiple_epochs
+from torch_plan_checks import assert_blocked_plans_equal as assert_plans_equal
 
 torch.set_num_threads(1)
 
@@ -78,15 +79,6 @@ def plans(edges, N=300, **kw):
     g = dict(GEOMETRY, **kw)
     return (jb.plan_blocked_edges(*edges, N, device_put=False, **g),
             pb.plan_blocked_edges(*edges, N, **g))
-
-
-def assert_plans_equal(J, P):
-    for name, a, b in zip(J.fwd._fields * 2, list(J.fwd) + list(J.bwd),
-                          list(P.fwd) + list(P.bwd)):
-        a = np.asarray(a)
-        assert b.numpy().dtype == a.dtype and np.array_equal(b.numpy(), a), name
-    assert (P.rows, P.num_nodes, P.group, P.num_gather) == (J.rows, J.num_nodes,
-                                                           J.group, J.num_gather)
 
 
 @pytest.mark.parametrize("num_blocks", [None, 64])

@@ -253,3 +253,83 @@ def test_cuda_blocked_engine_backward_matches_cpu(compute_dtype):
     for name, a, b in zip(("out", "dx", "datt", "dbasis"), out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol * float(b.abs().max()),
                                    msg=name)
+
+
+# name: (N, E, R, B, Cin, Cout, rows, eblk, hot row): shapes of the JAX
+# package's Pallas kernels past the CLI's defaults (more than 8 bases,
+# widths past 32, rows 128 / 64, an eblk that is not a multiple of 4), at
+# which tests/test_torch_port_shapes.py holds the plain versions against
+# JAX
+WIDE_SHAPES = {
+    "b16_r71": (512, 6000, 71, 16, 32, 32, 256, 1024, False),
+    "cin48_cout64": (512, 6000, 5, 4, 48, 64, 256, 1024, False),
+    "cin6_cout256": (512, 6000, 10, 1, 6, 256, 256, 1024, False),
+    "cin200_cout40_b12": (512, 6000, 5, 12, 200, 40, 256, 1024, False),
+    "eblk1000_rows128": (512, 6000, 5, 4, 32, 32, 128, 1000, False),
+    "eblk250_rows64_hot": (512, 6000, 5, 4, 32, 32, 64, 250, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_SHAPES))
+def test_cuda_kernels_at_every_jax_shape(name):
+    """K1, and K2 with dx on and off, at each shape against the float64
+    plain versions: K1 rtol 1e-5 / atol 1e-4, K2 within 1e-5 of each
+    entry's sum of |terms|; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, E, R, B, cin, cout, rows, eblk, hot = WIDE_SHAPES[name]
+    (src, dst, etyp, mask), (x, att, basis) = make_case(
+        "hot_row" if hot else "random", N, E, R, B, cin, cout, seed=14)
+    dev = torch.device("cuda")
+    ops = [torch.from_numpy(a).to(dev) for a in (x, att, basis)]
+    plan = tuple(torch.from_numpy(a).to(dev) for a in block_align_edges(
+        src, dst, etyp, mask, N, eblk=eblk, rows=rows)[:6])
+    before = rgcn_aggregate.launches
+    with torch.no_grad():
+        got = rgcn_aggregate(*ops, plan, rows, N)
+    want = rgcn_aggregate_ref(*(a.double() for a in ops), plan, rows, N).float()
+    torch.cuda.synchronize()
+    assert rgcn_aggregate.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+    plan_t = tuple(torch.from_numpy(a).to(dev) for a in block_align_edges_transposed(
+        src, dst, etyp, mask, N, eblk=eblk, rows=rows)[:6])
+    g = torch.from_numpy(np.random.default_rng(15).uniform(
+        -1, 1, (N, cout)).astype(np.float32)).to(dev)
+    args = [g] + ops
+    want = rgcn_aggregate_bwd_ref(*(a.double() for a in args), plan_t, rows)
+    terms = rgcn_aggregate_bwd_ref(*(a.double().abs() for a in args), plan_t, rows)
+    before = rgcn_aggregate_bwd.launches
+    got = rgcn_aggregate_bwd(*args, plan_t, rows)
+    no_dx = rgcn_aggregate_bwd(*args, plan_t, rows, need_dx=False)
+    torch.cuda.synchronize()
+    assert rgcn_aggregate_bwd.launches == before + 2 and no_dx[0] is None
+    for what, gv, wv, tv in zip(("dx", "datt", "dbasis"), got, want, terms):
+        assert_close_to_terms(gv, wv, tv, what)
+    for what, gv, wv, tv in zip(("datt", "dbasis"), no_dx[1:], want[1:], terms[1:]):
+        assert_close_to_terms(gv, wv, tv, what + " without dx")
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_rows_past_shared_memory():
+    """A plan of 8,192-row chunks: no accumulator of that many rows fits a
+    block's shared memory beside one relation's W_r tile, so each wrapper
+    raises before any launch, naming the rows and the bytes it needs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, R, B, cin, cout, rows, eblk = 8192, 5, 4, 32, 32, 8192, 1024
+    (src, dst, etyp, mask), (x, att, basis) = make_case(
+        "random", N, 2000, R, B, cin, cout, seed=16)
+    dev = torch.device("cuda")
+    ops = [torch.from_numpy(a).to(dev) for a in (x, att, basis)]
+    plan = tuple(torch.from_numpy(a).to(dev) for a in block_align_edges(
+        src, dst, etyp, mask, N, eblk=eblk, rows=rows)[:6])
+    g = torch.zeros(N, cout, device=dev)
+    fwd, bwd = rgcn_aggregate.launches, rgcn_aggregate_bwd.launches
+    with pytest.raises(ValueError, match="rows 8192 .* bytes of shared memory"):
+        with torch.no_grad():
+            rgcn_aggregate(*ops, plan, rows, N)
+    with pytest.raises(ValueError, match="rows 8192 .* bytes of shared memory"):
+        rgcn_aggregate_bwd(g, *ops, plan, rows)
+    assert (rgcn_aggregate.launches, rgcn_aggregate_bwd.launches) == (fwd, bwd)

@@ -159,10 +159,9 @@ def _cpu_case(Cin=8, Cout=16):
 
 @pytest.mark.parametrize("what,error", [
     ("float64 x", TypeError), ("int64 src", TypeError),
-    ("cout 64", ValueError), ("9 bases", ValueError), ("x rows", ValueError),
+    ("0 bases", ValueError), ("x rows", ValueError),
     ("strided x", ValueError), ("mask length", ValueError),
-    ("requires grad", RuntimeError), ("cin 64", ValueError),
-    ("blocks of 6", ValueError),
+    ("requires grad", RuntimeError), ("ragged blocks", ValueError),
 ])
 def test_kernel_input_checks(what, error):
     """What the CUDA kernel does not take raises before any launch (the
@@ -173,11 +172,9 @@ def test_kernel_input_checks(what, error):
         x = x.double()
     elif what == "int64 src":
         aligned = (aligned[0].long(),) + aligned[1:]
-    elif what == "cout 64":
-        basis = torch.zeros(4, 8, 64)
-    elif what == "9 bases":
-        basis = torch.zeros(9, 8, 16)
-        att = torch.zeros(5, 9)
+    elif what == "0 bases":
+        basis = torch.zeros(0, 8, 16)
+        att = torch.zeros(5, 0)
     elif what == "x rows":
         x = x[:48]
     elif what == "strided x":
@@ -186,17 +183,30 @@ def test_kernel_input_checks(what, error):
         aligned = aligned[:3] + (aligned[3][:-1],) + aligned[4:]
     elif what == "requires grad":
         basis = basis.clone().requires_grad_(True)
-    elif what == "cin 64":
-        x = torch.zeros(64, 64)
-        basis = torch.zeros(4, 64, 16)
-    elif what == "blocks of 6":   # the kernels read masks 4 slots at a time
-        aligned = tuple(a[:60] for a in aligned[:4]) + (aligned[4][:10],) + aligned[5:]
+    elif what == "ragged blocks":   # 60 slots do not split into 7 blocks
+        aligned = tuple(a[:60] for a in aligned[:4]) + (aligned[4][:7],) + aligned[5:]
     with pytest.raises(error):
         _check_cuda_inputs(x, att, basis, aligned, rows, N)
 
 
-def test_kernel_input_checks_accept_the_real_case():
+@pytest.mark.parametrize("what", ["cin 32 cout 32", "cout 64", "9 bases",
+                                  "cin 64", "blocks of 6"])
+def test_kernel_input_checks_accept_the_real_case(what):
+    """The kernels take what the JAX package's Pallas kernels take: any
+    Cin, Cout and number of bases, and blocks of any size (6 slots here,
+    not a multiple of 4)."""
     x, att, basis, aligned = _cpu_case(Cin=32, Cout=32)
+    if what == "cout 64":
+        basis = torch.zeros(4, 32, 64)
+    elif what == "9 bases":
+        basis = torch.zeros(9, 32, 32)
+        att = torch.zeros(5, 9)
+    elif what == "cin 64":
+        x = torch.zeros(64, 64)
+        basis = torch.zeros(4, 64, 32)
+    elif what == "blocks of 6":
+        nblk = aligned[4].shape[0]
+        aligned = tuple(a[:6 * nblk] for a in aligned[:4]) + aligned[4:]
     _check_cuda_inputs(x, att, basis, aligned, 16, 64)
 
 

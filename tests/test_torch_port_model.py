@@ -22,10 +22,8 @@ from igmc_tpu.train.torch_interop import (load_reference_checkpoint,
                                           state_dict_from_params)
 
 from igmc_torch.batching import BatchLoader, StaticGraphDataset
-from igmc_torch.batching import dataset as port_dataset
 from igmc_torch.data import create_trainvaltest_split
 from igmc_torch.models import IGMC, IGMCConfig
-from igmc_torch.models import igmc as port_igmc
 from igmc_torch.train import (checkpoint_path, load_checkpoint,
                               params_from_jax, resolve_checkpoint, save_pth)
 from igmc_torch.train import test_once as port_test_once
@@ -42,10 +40,10 @@ def jax_cfg(aggr="mean", rows=256):
                          pallas_rows=rows)
 
 
-def port_cfg(aggr="mean"):
+def port_cfg(aggr="mean", rows=256):
     return IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32),
                       num_relations=5, num_bases=4, aggr=aggr,
-                      flat_aggregate="pallas")
+                      flat_aggregate="pallas", pallas_rows=rows)
 
 
 def jax_params(seed):
@@ -56,8 +54,8 @@ def to_numpy(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def port_model(params, aggr="mean"):
-    model = IGMC(port_cfg(aggr), torch.Generator().manual_seed(0))
+def port_model(params, aggr="mean", rows=256):
+    model = IGMC(port_cfg(aggr, rows), torch.Generator().manual_seed(0))
     model.load_state_dict(params_from_jax(to_numpy(params)))
     return model.eval()
 
@@ -150,24 +148,22 @@ def test_resolve_checkpoint_and_ckpt_refusal(tmp_path):
 @pytest.mark.parametrize("aggr,rows,eblk", [("mean", 256, 1024),
                                             ("sum", 256, 1024),
                                             ("mean", 64, 256)])
-def test_forward_matches_jax_pallas(data, monkeypatch, aggr, rows, eblk):
-    """Same weights (carried by params_from_jax), same batch: predictions
-    agree to atol 1e-4 (float32, another summation order)."""
+def test_forward_matches_jax_pallas(data, aggr, rows, eblk):
+    """Same weights (carried by params_from_jax), same batch, the same plan
+    geometry (BatchLoader's plan_rows / plan_eblk, IGMCConfig.pallas_rows):
+    predictions agree to atol 1e-4 (float32, another summation order)."""
     want_ds, got_ds = data
-    # the port's plan geometry is module constants of the loader and model
-    monkeypatch.setattr(port_dataset, "PLAN_ROWS", rows)
-    monkeypatch.setattr(port_dataset, "PLAN_EBLK", eblk)
-    monkeypatch.setattr(port_igmc, "PLAN_ROWS", rows)
     params = jax_params(5)
     cfg = jax_cfg(aggr, rows)
     want_batch = next(iter(JaxBatchLoader(
         want_ds, 50, device_put=False, prefetch=0, flat_aggregate="pallas",
         plan_rows=rows, plan_eblk=eblk)))
     want = np.asarray(igmc_forward(params, want_batch, cfg, None, False))
-    got_batch = next(iter(BatchLoader(got_ds, 50, flat_aggregate="pallas")))
-    assert got_batch.num_nodes % rows == 0
+    got_batch = next(iter(BatchLoader(got_ds, 50, flat_aggregate="pallas",
+                                      plan_rows=rows, plan_eblk=eblk)))
+    assert got_batch.num_nodes % rows == 0 and got_batch.plan_rows == rows
     with torch.no_grad():
-        got = port_model(params, aggr)(got_batch)
+        got = port_model(params, aggr, rows)(got_batch)
     assert got.shape == (50,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 

@@ -1,5 +1,6 @@
-"""The invariants that tie igmc_torch's block-aligned edge plans to the JAX
-package's (imported by the port's test files; not a test module itself).
+"""The invariants that tie igmc_torch's block-aligned edge plans and its
+blocked engine's plans to the JAX package's (imported by the port's test
+files; not a test module itself).
 
 The port sorts each scatter row's edges by relation ((dst, etype) in the
 forward plan, (src, etype) in the twin), where JAX sorts by the scatter row
@@ -49,3 +50,15 @@ def assert_plan_matches_jax(got, want):
     same_row = ((slot_chunk[idx[1:]] == slot_chunk[idx[:-1]])
                 & (local[idx[1:]] == local[idx[:-1]]))
     assert (etype[idx[1:]][same_row] >= etype[idx[:-1]][same_row]).all()
+
+
+def assert_blocked_plans_equal(J, P):
+    """The blocked engine's plans: `P` (the port's BlockedEdges, CPU
+    tensors) equals `J` (the JAX package's) field by field, dtypes
+    included, in both directions, with the same geometry."""
+    for name, a, b in zip(J.fwd._fields * 2, list(J.fwd) + list(J.bwd),
+                          list(P.fwd) + list(P.bwd)):
+        a = np.asarray(a)
+        assert b.numpy().dtype == a.dtype and np.array_equal(b.numpy(), a), name
+    assert (P.rows, P.num_nodes, P.group, P.num_gather) == (J.rows, J.num_nodes,
+                                                           J.group, J.num_gather)
