@@ -55,6 +55,7 @@ from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_edges,
                                       block_align_edges_transposed,
                                       plan_capacity_blocks)
 from ..ops.blocked import plan_blocked_edges
+from ..utils import spans
 from .batch import GraphBatch, bucket_for, collate, pad_ladder, topk_sum_bound
 from .dense import collate_dense
 
@@ -243,10 +244,13 @@ class StaticGraphDataset:
             return
         if not isinstance(A, BipartiteCSR):
             A = BipartiteCSR(A)
-        self.packed = _PackedGraphs(extract_many(
-            links, labels, A, h, sample_ratio, max_nodes_per_hop,
-            _densify(u_features), _densify(v_features), class_values,
-            seed=seed, backend=backend, progress=progress))
+        with spans.span("graphs.extract"):
+            graphs = extract_many(
+                links, labels, A, h, sample_ratio, max_nodes_per_hop,
+                _densify(u_features), _densify(v_features), class_values,
+                seed=seed, backend=backend, progress=progress)
+        with spans.span("graphs.pack"):
+            self.packed = _PackedGraphs(graphs)
         if self.cache_path:
             self.packed.save(self.cache_path)
 
@@ -476,6 +480,7 @@ class BatchLoader:
             return self.dataset.get_many(idxs)
         return [self.dataset.get(int(i)) for i in idxs]
 
+    @spans.spanned("loader.collate")
     def _make_batch_dense(self, graphs, idxs):
         node_slot = self._bucket(max(g.num_nodes for g in graphs),
                                  self.node_ladder, "node-slot")
@@ -487,25 +492,31 @@ class BatchLoader:
                                                       else packed.edge_offsets))
 
     def _make_batch_flat(self, graphs, idxs) -> GraphBatch:
-        node_pad = self._bucket(sum(g.num_nodes for g in graphs),
-                                self.node_ladder, "node")
-        edge_pad = self._bucket(sum(g.num_edges for g in graphs),
-                                self.edge_ladder, "edge")
-        if self.flat_aggregate == "pallas":
-            # the kernel's output chunking needs num_nodes % rows == 0
-            node_pad = -(-node_pad // self.plan_rows) * self.plan_rows
-        packed = getattr(self.dataset, "packed", None)
-        batch = collate(graphs, self.batch_size, node_pad, edge_pad, gids=idxs,
-                        edge_offsets=None if packed is None else packed.edge_offsets)
-        if self.flat_aggregate is None:
-            return batch
+        with spans.span("loader.collate"):
+            node_pad = self._bucket(sum(g.num_nodes for g in graphs),
+                                    self.node_ladder, "node")
+            edge_pad = self._bucket(sum(g.num_edges for g in graphs),
+                                    self.edge_ladder, "edge")
+            if self.flat_aggregate == "pallas":
+                # the kernel's output chunking needs num_nodes % rows == 0
+                node_pad = -(-node_pad // self.plan_rows) * self.plan_rows
+            packed = getattr(self.dataset, "packed", None)
+            batch = collate(graphs, self.batch_size, node_pad, edge_pad, gids=idxs,
+                            edge_offsets=None if packed is None else packed.edge_offsets)
+        if self.flat_aggregate is not None:
+            self._plan(batch, node_pad, edge_pad)
+        return batch
+
+    @spans.spanned("loader.plan")
+    def _plan(self, batch: GraphBatch, node_pad: int, edge_pad: int):
+        """Attach the plans `flat_aggregate` asks for to `batch`."""
         rows, eblk = self.plan_rows, self.plan_eblk
         nb = plan_capacity_blocks(node_pad, edge_pad, rows, eblk)
         if self.flat_aggregate == "blocked":
             batch.blocked = plan_blocked_edges(
                 batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
                 batch.edge_canon, node_pad, rows, eblk, num_blocks=nb)
-            return batch
+            return
         edges = (batch.edge_src.numpy(), batch.edge_dst.numpy(),
                  batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad)
         plan_kw = dict(eblk=eblk, rows=rows, num_blocks=nb,
@@ -518,8 +529,8 @@ class BatchLoader:
             plan_t = block_align_edges_transposed(*edges, **plan_kw)
             batch.aligned_t = tuple(torch.from_numpy(a)
                                     for a in plan_t[:6] + plan_t[7:])
-        return batch
 
+    @spans.spanned("loader.collate")
     def _make_batch_dp(self, graphs, idxs):
         """This rank's sub-batch of the global batch of `graphs`."""
         from ..parallel.dp import split_for_devices
@@ -533,11 +544,16 @@ class BatchLoader:
             graphs, D, per, self.node_ladder, self.edge_ladder, gids=idxs,
             edge_offsets=None if packed is None else packed.edge_offsets)[self.rank]
 
-    def make_batch(self, idxs: np.ndarray):
+    def make_batch(self, idxs: np.ndarray, index: Optional[int] = None):
         """The batch of dataset indices `idxs` (this rank's sub-batch of it
-        with n_devices > 1)."""
+        with n_devices > 1); `index`, the batch's place in its pass, is the
+        group of its spans (loader.fetch, loader.collate, loader.plan,
+        loader.pin; utils/spans.py)."""
         idxs = np.asarray(idxs, dtype=np.int64)
-        graphs = self._fetch(idxs)
+        if index is not None:
+            spans.set_group(index)
+        with spans.span("loader.fetch"):
+            graphs = self._fetch(idxs)
         if self.n_devices > 1:
             batch = self._make_batch_dp(graphs, idxs)
         elif self.batch_mode == "dense":
@@ -545,7 +561,8 @@ class BatchLoader:
         else:
             batch = self._make_batch_flat(graphs, idxs)
         if self.pin_memory:
-            batch = _map_tensors(batch, torch.Tensor.pin_memory)
+            with spans.span("loader.pin"):
+                batch = _map_tensors(batch, torch.Tensor.pin_memory)
         return batch
 
     def _order(self) -> np.ndarray:
@@ -561,14 +578,14 @@ class BatchLoader:
         chunks = [order[s : s + self.batch_size]
                   for s in range(0, len(order), self.batch_size)]
         if self.prefetch <= 0:
-            for idxs in chunks:
-                yield self.make_batch(idxs)
+            for i, idxs in enumerate(chunks):
+                yield self.make_batch(idxs, i)
             return
         with cf.ThreadPoolExecutor(max_workers=min(self.prefetch, 4)) as ex:
             pending: deque = deque()
             i = 0
             while i < len(chunks) or pending:
                 while i < len(chunks) and len(pending) < self.prefetch + 1:
-                    pending.append(ex.submit(self.make_batch, chunks[i]))
+                    pending.append(ex.submit(self.make_batch, chunks[i], i))
                     i += 1
                 yield pending.popleft().result()

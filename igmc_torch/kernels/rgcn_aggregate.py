@@ -34,6 +34,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import spans
+
 # ---------------------------------------------------------------------------
 # Host-side block alignment
 # ---------------------------------------------------------------------------
@@ -374,6 +376,7 @@ class _Aggregate(torch.autograd.Function):
         return dx, datt, dbasis, None, None, None, None
 
 
+@spans.spanned("kernels.k1")
 def rgcn_aggregate(x, att, basis, aligned, rows: int, num_nodes: int,
                    aligned_t=None):
     """Masked segment-SUM of basis-mixed messages over aligned blocks.
@@ -394,7 +397,8 @@ def rgcn_aggregate(x, att, basis, aligned, rows: int, num_nodes: int,
     do not take raises. The kernels trust the plans' index values
     (checking them would cost a device sync per launch): block_align_edges
     checks them against num_nodes when it builds a plan. CPU tensors take
-    the plain versions.
+    the plain versions. A call is span `kernels.k1` (utils/spans.py): on a
+    card the checks and K1's launch, on the CPU the plain version.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rgcn_aggregate: no kernel for device {x.device}")
@@ -411,6 +415,7 @@ def rgcn_aggregate(x, att, basis, aligned, rows: int, num_nodes: int,
 rgcn_aggregate.launches = 0
 
 
+@spans.spanned("kernels.k2")
 def rgcn_aggregate_bwd(g, x, att, basis, aligned_t, rows: int,
                        need_dx: bool = True):
     """The aggregate's gradient for the output gradient g [N, Cout]:
@@ -419,7 +424,8 @@ def rgcn_aggregate_bwd(g, x, att, basis, aligned_t, rows: int,
     CPU tensors take rgcn_aggregate_bwd_ref. CUDA tensors go through K2
     (csrc/rgcn_aggregate_bwd.cu; `rgcn_aggregate_bwd.launches` counts its
     launches), which skips dx when `need_dx` is false (layer 1's one-hot
-    input); anything it does not take raises."""
+    input); anything it does not take raises. A call is span `kernels.k2`
+    (on a card autograd calls it on its device thread)."""
     if g.device.type == "cpu":
         dx, datt, dbasis = rgcn_aggregate_bwd_ref(g, x, att, basis, aligned_t, rows)
         return (dx if need_dx else None), datt, dbasis

@@ -46,6 +46,7 @@ from .models.igmc import IGMC
 from .train.checkpoints import load_checkpoint, resolve_checkpoint
 from .parallel.dp import rank_columns
 from .train.loop import DensePass
+from .utils import spans
 
 
 class Predictor:
@@ -164,6 +165,7 @@ class Predictor:
                 f"({int(users[bad[0]])}, {int(items[bad[0]])}))")
         return users, items
 
+    @spans.spanned("serve.subgraphs")
     def subgraphs(self, users, items) -> StaticGraphDataset:
         """The pairs' enclosing subgraphs in the serving adjacency, packed
         (host extraction: the first half of `predict`)."""
@@ -184,29 +186,37 @@ class Predictor:
         batch is assembled on the card, every member scores it there and
         the mean is scattered into place; one fetch at the end. With a mesh
         each rank scores its columns of every row, and the rows' means are
-        all-gathered once."""
+        all-gathered once. Spans serve.upload, serve.buckets, serve.rows,
+        serve.members (the rows' assembly, the members and the means, and
+        a mesh's gather) and serve.fetch (the scatter and the one fetch)."""
         G = len(ds)
         if G == 0:
             return np.zeros(0, np.float32)
-        dd = DeviceDataset(ds.packed, self.device)
-        # rows of plan_dense_epoch's [K, B] blocks in order: K only pads
-        # with all-(-1) rows, which a DensePass drops
-        rows = DensePass.plan(self._buckets(ds), self.batch_size, 1, self.device)
-        cols = (slice(None) if self.mesh is None
-                else rank_columns(self.mesh, self.batch_size))
-        means = [torch.stack([m(batch) for m in self._members]).mean(0)
-                 for batch in rows.batches(dd, cols=cols)]
-        if self.mesh is not None:
-            # [D * S, B/D] in rank order -> [S, B]: row i is rank 0's
-            # columns of row i, then rank 1's, ...
-            S = len(means)
-            every = self.mesh.all_gather(torch.stack(means))
-            means = list(every.reshape(self.mesh.size, S, -1).transpose(0, 1)
-                         .reshape(S, -1))
-        preds = torch.full((G + 1,), float("nan"), device=self.device)
-        for gids, mean in zip(rows.gids, means):
-            preds.index_copy_(0, torch.where(gids >= 0, gids, G), mean)
-        return preds[:G].cpu().numpy()
+        with spans.span("serve.upload"):
+            dd = DeviceDataset(ds.packed, self.device)
+        with spans.span("serve.buckets"):
+            buckets = self._buckets(ds)
+        with spans.span("serve.rows"):
+            # rows of plan_dense_epoch's [K, B] blocks in order: K only pads
+            # with all-(-1) rows, which a DensePass drops
+            rows = DensePass.plan(buckets, self.batch_size, 1, self.device)
+        with spans.span("serve.members"):
+            cols = (slice(None) if self.mesh is None
+                    else rank_columns(self.mesh, self.batch_size))
+            means = [torch.stack([m(batch) for m in self._members]).mean(0)
+                     for batch in rows.batches(dd, cols=cols)]
+            if self.mesh is not None:
+                # [D * S, B/D] in rank order -> [S, B]: row i is rank 0's
+                # columns of row i, then rank 1's, ...
+                S = len(means)
+                every = self.mesh.all_gather(torch.stack(means))
+                means = list(every.reshape(self.mesh.size, S, -1).transpose(0, 1)
+                             .reshape(S, -1))
+        with spans.span("serve.fetch"):
+            preds = torch.full((G + 1,), float("nan"), device=self.device)
+            for gids, mean in zip(rows.gids, means):
+                preds.index_copy_(0, torch.where(gids >= 0, gids, G), mean)
+            return preds[:G].cpu().numpy()
 
     def predict(self, users, items) -> np.ndarray:
         """Ratings for the pairs (users[i], items[i]); shape [n] float32.
@@ -214,8 +224,10 @@ class Predictor:
         Pairs are scored from their h-hop enclosing subgraphs in the
         SERVING adjacency; an edge between the target pair itself is
         removed before message passing (as in training), so observed pairs
-        are scored as if held out."""
+        are scored as if held out. A call counts one `serve.calls`, whose
+        new value is the group of its spans (utils/spans.py)."""
         users, items = self._check_pairs(users, items)
         if len(users) == 0:
             return np.zeros(0, np.float32)
+        spans.set_group(spans.count("serve.calls"))
         return self.score(self.subgraphs(users, items))

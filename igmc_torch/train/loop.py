@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import math
 import os
 import time
@@ -74,6 +75,7 @@ from ..batching.device_data import (DeviceDataset, assemble_batch, assemble_dens
 from ..device import resolve_device
 from ..models.igmc import IGMC, arr_regularizer, draw_noise, slice_noise
 from ..parallel.dp import make_dp_train_step, rank_columns, rank_noise
+from ..utils import spans
 from ..utils.progress import Heartbeat
 from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
 
@@ -125,13 +127,18 @@ def loss_fn(model, batch, noise, ARR: float):
 
 def make_train_step(model, optimizer, ARR: float = 0.0) -> Callable:
     """(batch, noise) -> (loss, n) as tensors on the batch's device, after
-    one optimizer step on the loss's gradient."""
+    one optimizer step on the loss's gradient. Spans train.forward (the
+    loss), train.backward and train.optimizer (`optimizer.step()`; the
+    `zero_grad` before the forward is in no span)."""
 
     def step(batch, noise):
         optimizer.zero_grad(set_to_none=True)
-        loss, n = loss_fn(model, batch, noise, ARR)
-        loss.backward()
-        optimizer.step()
+        with spans.span("train.forward"):
+            loss, n = loss_fn(model, batch, noise, ARR)
+        with spans.span("train.backward"):
+            loss.backward()
+        with spans.span("train.optimizer"):
+            optimizer.step()
         return loss.detach(), n
 
     return step
@@ -175,7 +182,8 @@ def make_chunked_dense_train_step(model, optimizer, chunk: int,
     gradients accumulating; ARR's gradient is added once; then one
     optimizer step. The slices get their rows of feature_keep and the row's
     edge seed (slice_noise), so the step equals make_train_step's on the
-    whole row, dropout included."""
+    whole row, dropout included. Spans as make_train_step's, forward and
+    backward once per slice and once more for the ARR term."""
 
     def step(assemble, gids, noise):
         optimizer.zero_grad(set_to_none=True)
@@ -183,17 +191,22 @@ def make_chunked_dense_train_step(model, optimizer, chunk: int,
         sse = torch.zeros((), device=gids.device)
         for s in range(0, gids.shape[0], chunk):
             batch = assemble(gids[s:s + chunk])
-            preds = model(batch, slice_noise(noise, s, s + chunk))
-            part = (((preds - batch.y) ** 2) * batch.graph_mask.float()).sum()
-            (part / n).backward()
+            with spans.span("train.forward"):
+                preds = model(batch, slice_noise(noise, s, s + chunk))
+                part = (((preds - batch.y) ** 2) * batch.graph_mask.float()).sum()
+            with spans.span("train.backward"):
+                (part / n).backward()
             sse = sse + part.detach()
             del batch, preds, part
         loss = sse / n
-        reg = ARR * arr_regularizer(model) if ARR != 0.0 else 0.0
+        with spans.span("train.forward"):
+            reg = ARR * arr_regularizer(model) if ARR != 0.0 else 0.0
         if torch.is_tensor(reg):        # GCN-only families carry no ARR term
-            reg.backward()
+            with spans.span("train.backward"):
+                reg.backward()
             loss = loss + reg.detach()
-        optimizer.step()
+        with spans.span("train.optimizer"):
+            optimizer.step()
         return loss, n
 
     return step
@@ -226,15 +239,32 @@ def train_epoch(step_fn: Callable, loader, generator: torch.Generator,
     stays on the device: the one float() at the end is the epoch's only
     host sync. With a `mesh` the loader yields this rank's sub-batches: the
     whole batch's noise is drawn and the rank takes its rows
-    (rank_noise)."""
+    (rank_noise).
+
+    Step i's spans (group i): train.fetch (waiting for the loader's
+    batch), train.inputs (its upload and noise), then the step's own;
+    counters train.steps, and batch.edges and batch.edge_slots (the host
+    batch's real edges and edge slots)."""
     total = None
     D = 1 if mesh is None else mesh.size
-    for batch in loader:
-        batch = batch.to(device, non_blocking=True)
-        noise = draw_noise(generator, batch.num_graphs * D)
-        if mesh is not None:
-            noise = rank_noise(mesh, noise, batch.num_graphs * D)
-        loss, n = step_fn(batch, (noise[0], noise[1].to(device)))
+    batches = iter(loader)
+    for i in itertools.count():
+        spans.set_group(i)
+        with spans.span("train.fetch"):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        with spans.span("train.inputs"):
+            if spans.on:        # one thread: no torch reduction on the host
+                spans.count("batch.edges", int(np.count_nonzero(batch.edge_mask.numpy())))
+                spans.count("batch.edge_slots", batch.edge_mask.numel())
+            batch = batch.to(device, non_blocking=True)
+            noise = draw_noise(generator, batch.num_graphs * D)
+            if mesh is not None:
+                noise = rank_noise(mesh, noise, batch.num_graphs * D)
+            noise = (noise[0], noise[1].to(device))
+        loss, n = step_fn(batch, noise)
+        spans.count("train.steps")
         total = loss * n if total is None else total + loss * n
     if total is None:
         return 0.0
@@ -359,6 +389,7 @@ class DensePass:
     gids: torch.Tensor
 
     @classmethod
+    @spans.spanned("pass.plan")
     def plan(cls, buckets, batch_graphs: int, superbatch: int, device,
              rng: Optional[np.random.Generator] = None) -> "DensePass":
         bucket_of, rows = [], [np.zeros((0, batch_graphs), np.int32)]
@@ -369,6 +400,7 @@ class DensePass:
         gids = torch.from_numpy(np.concatenate(rows).astype(np.int64))
         return cls(buckets, bucket_of, gids.to(device))
 
+    @spans.spanned("pass.assemble")
     def assemble(self, dd: DeviceDataset, bucket: int, gids: torch.Tensor,
                  rel_caps: Optional[tuple] = None):
         """The DenseBatch of graph ids `gids` in bucket `bucket`'s slots."""
@@ -397,6 +429,7 @@ class FlatPass:
     gids: torch.Tensor
 
     @classmethod
+    @spans.spanned("pass.plan")
     def plan(cls, dataset, batch_graphs: int, superbatch: int, device,
              order: Optional[np.ndarray] = None) -> "FlatPass":
         """The pass over `dataset` (node_counts / edge_counts) in `order`
@@ -415,6 +448,7 @@ class FlatPass:
     def bucket_of(self) -> List[int]:
         return [0] * self.gids.shape[0]
 
+    @spans.spanned("pass.assemble")
     def assemble(self, dd: DeviceDataset, bucket: int, gids: torch.Tensor,
                  rel_caps: Optional[tuple] = None) -> GraphBatch:
         """The GraphBatch of graph ids `gids` (`bucket` and `rel_caps` are
@@ -434,15 +468,20 @@ def dense_train_epoch(step_fn: Callable, dd: DeviceDataset, epoch: DensePass,
     make_dense_row_step per live row with noise
     from `generator` (draw_noise, drawn for the whole pass first and
     uploaded at once); returns sum(loss * n) / dataset_size, one host
-    sync."""
-    noise = [draw_noise(generator, epoch.gids.shape[1]) for _ in epoch.bucket_of]
-    if not noise:
-        return 0.0
-    keeps = torch.stack([keep for _, keep in noise]).to(dd.device)
+    sync. Spans: train.inputs (the pass's noise, group -1), then step i's
+    own (group i); counter train.steps."""
+    spans.set_group(-1)
+    with spans.span("train.inputs"):
+        noise = [draw_noise(generator, epoch.gids.shape[1]) for _ in epoch.bucket_of]
+        if not noise:
+            return 0.0
+        keeps = torch.stack([keep for _, keep in noise]).to(dd.device)
     total = None
     for i, bi in enumerate(epoch.bucket_of):
+        spans.set_group(i)
         assemble = lambda gids: epoch.assemble(dd, bi, gids, rel_caps)
         loss, n = step_fn(assemble, epoch.gids[i], (noise[i][0], keeps[i]))
+        spans.count("train.steps")
         total = loss * n if total is None else total + loss * n
     return float(total) / max(dataset_size, 1)
 
@@ -526,7 +565,9 @@ def _check_host_layout(dense_layout: str):
 
 
 def _start_profile(dev):
-    """A running torch.profiler of CPU and, on a card, CUDA activity."""
+    """A running torch.profiler of CPU and, on a card, CUDA activity, and
+    whether the program's spans were on before: they are switched on, so
+    the trace carries their `igmc:` ranges (utils/spans.py)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -534,14 +575,19 @@ def _start_profile(dev):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
-    return prof
+    return prof, spans.enable()
 
 
-def _stop_profile(prof, dev, profile_dir: str, epoch: int):
-    """Stop `prof` and write its Chrome trace into `profile_dir`."""
+def _stop_profile(profiling, dev, profile_dir: str, epoch: int):
+    """Stop the profiler of `_start_profile`, switch the spans back off
+    unless they were on before, and write its Chrome trace into
+    `profile_dir`."""
+    prof, spans_were_on = profiling
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     prof.stop()
+    if not spans_were_on:
+        spans.disable()
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.trace.json"))
     print(f"torch.profiler trace of epoch {epoch} written to {profile_dir}")
@@ -788,8 +834,8 @@ def train_multiple_epochs(
     for epoch in range(start_epoch, epochs + start_epoch):
         t_epoch = time.perf_counter()
         noise_gen = _noise_generator(seed, epoch)
-        prof = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
-                and lead else None)
+        profiling = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
+                     and lead else None)
         model.train()
         if device_resident:
             # the JAX package's epoch rng: the same buckets' permutations
@@ -810,8 +856,8 @@ def train_multiple_epochs(
             timed_train, timed_test = _Timed(train_loader), _Timed(test_loader)
             train_loss = train_epoch(step_fn, timed_train, noise_gen,
                                      len(train_dataset), dev, mesh)
-        if prof is not None:
-            _stop_profile(prof, dev, profile_dir, epoch)
+        if profiling is not None:
+            _stop_profile(profiling, dev, profile_dir, epoch)
         model.eval()
         if epoch % test_freq != 0:
             rmses.append(float("nan"))
@@ -929,13 +975,13 @@ def train_multiple_epochs_ep(
     beat = Heartbeat("epochs", epochs) if progress and lead else None
     for epoch in range(start_epoch, epochs + start_epoch):
         t_epoch = time.perf_counter()
-        prof = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
-                and lead else None)
+        profiling = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
+                     and lead else None)
         model.train()
         rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
         total = ep_train_epoch(step_fn, train_shards, seed, epoch, rng, train_plans)
-        if prof is not None:
-            _stop_profile(prof, dev, profile_dir, epoch)
+        if profiling is not None:
+            _stop_profile(profiling, dev, profile_dir, epoch)
         model.eval()
         acc = (ep_eval_sums(model, test_shards, mesh, test_plans)
                if epoch % test_freq == 0 else None)
