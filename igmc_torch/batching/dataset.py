@@ -51,8 +51,7 @@ import torch
 from ..graphs import native
 from ..graphs.csr import BipartiteCSR
 from ..graphs.extract import Subgraph, extract_many
-from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_edges,
-                                      block_align_edges_transposed,
+from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_plans,
                                       plan_capacity_blocks)
 from ..ops.blocked import plan_blocked_edges
 from ..utils import spans
@@ -517,18 +516,18 @@ class BatchLoader:
                 batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
                 batch.edge_canon, node_pad, rows, eblk, num_blocks=nb)
             return
-        edges = (batch.edge_src.numpy(), batch.edge_dst.numpy(),
-                 batch.edge_type.numpy(), batch.edge_mask.numpy(), node_pad)
-        plan_kw = dict(eblk=eblk, rows=rows, num_blocks=nb,
-                       edge_canon=batch.edge_canon.numpy())
+        # the forward plan, and its twin for the gradient, in one call
+        plans, engine = block_align_plans(
+            batch.edge_src.numpy(), batch.edge_dst.numpy(), batch.edge_type.numpy(),
+            batch.edge_mask.numpy(), node_pad, eblk=eblk, rows=rows, num_blocks=nb,
+            edge_canon=batch.edge_canon.numpy(), twin=self.shuffle)
+        spans.count(f"loader.plans_{engine}", len(plans))
         batch.plan_rows = rows
         # (src, dst_local, etype, mask, chunk_of_block, first_of_chunk, ukey)
-        plan = block_align_edges(*edges, **plan_kw)
-        batch.aligned = tuple(torch.from_numpy(a) for a in plan[:6] + plan[7:])
+        aligned = [tuple(torch.from_numpy(a) for a in p[:6] + p[7:]) for p in plans]
+        batch.aligned = aligned[0]
         if self.shuffle:
-            plan_t = block_align_edges_transposed(*edges, **plan_kw)
-            batch.aligned_t = tuple(torch.from_numpy(a)
-                                    for a in plan_t[:6] + plan_t[7:])
+            batch.aligned_t = aligned[1]
 
     @spans.spanned("loader.collate")
     def _make_batch_dp(self, graphs, idxs):

@@ -1,4 +1,6 @@
-"""ctypes binding of the C++ extraction engine (native/extract.cpp).
+"""ctypes binding of the C++ extraction engine (native/extract.cpp), whose
+library also builds the fused aggregate's block plans (igmc_plan_blocks,
+called by kernels/rgcn_aggregate.py block_align_plans).
 
 Port of igmc_tpu/graphs/native.py and native_impl.py. The library is
 built with g++ on first use (native/build.py) and loaded once per
@@ -22,7 +24,7 @@ import numpy as np
 
 from .extract import Subgraph, side_features
 
-ABI_VERSION = 2  # must match igmc_extract_abi_version() in extract.cpp
+ABI_VERSION = 3  # must match igmc_extract_abi_version() in extract.cpp
 
 _LIB = None
 _ERROR = None      # why the library could not be built or loaded
@@ -86,6 +88,10 @@ def _declare(lib):
     lib.igmc_extract_sizes.argtypes = [ct.c_void_p] * 4
     lib.igmc_extract_fill.argtypes = [ct.c_void_p] * 7
     lib.igmc_extract_free.argtypes = [ct.c_void_p]
+    lib.igmc_plan_blocks.restype = ct.c_int32
+    lib.igmc_plan_blocks.argtypes = (
+        [ct.c_void_p] * 5 + [ct.c_int32] + [ct.c_int64] * 5
+        + [ct.c_int32, ct.c_void_p, ct.c_void_p])
 
 
 def _as(arr, dtype):

@@ -4,7 +4,9 @@ kernel wrappers (forward K1, backward K2) and their plain PyTorch versions.
 Port of igmc_tpu/kernels/rgcn_aggregate.py. The host packs a batch's
 edges, sorted by destination, into fixed blocks of `eblk` edges such that
 every block only targets one aligned chunk of `rows` output rows
-(block_align_edges). `rgcn_aggregate` then computes, per node row,
+(block_align_edges; block_align_plans builds it and its twin in one call
+into the C++ engine, with NumPy where the engine cannot load).
+`rgcn_aggregate` then computes, per node row,
 
     out[i] = sum_{e: dst_e = i} mask_e * sum_b att[etype_e, b] * (x[src_e] @ basis[b])
 
@@ -34,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..graphs import native
 from ..utils import spans
 
 # ---------------------------------------------------------------------------
@@ -86,65 +89,12 @@ def block_align_edges(
     `ukey_vals` is given): `edge_canon * 2 + (src < dst)` per real slot,
     from the undirected-pair ids of GraphBatch.edge_canon, so the keep
     decision can be recomputed on the device as a stateless hash of
-    (seed, ukey). `ukey_vals` carries precomputed per-edge keys instead
-    (block_align_edges_transposed passes the original orientation's).
+    (seed, ukey). `ukey_vals` carries precomputed per-edge keys instead.
     """
-    if num_nodes % rows:
-        raise ValueError(f"num_nodes {num_nodes} is not a multiple of rows {rows}")
-    real = np.nonzero(edge_mask)[0]
-    if len(real) and (edge_src[real].min() < 0 or edge_src[real].max() >= num_nodes
-                      or edge_dst[real].min() < 0 or edge_dst[real].max() >= num_nodes):
-        raise ValueError(f"edge endpoints outside [0, {num_nodes})")
-    # dst-sorted as the JAX plan, and by relation within each dst row, so
-    # that a (dst, relation) run is a stretch of consecutive slots (the
-    # kernels' run form); one stable sort of one int64 key
-    key = (edge_dst[real].astype(np.int64) << 32) | edge_type[real].astype(np.int64)
-    order = real[np.argsort(key, kind="stable")]
-    dst_sorted = edge_dst[order]
-    chunk_ids = dst_sorted // rows
-
-    # per-chunk edge counts -> per-chunk block counts
-    n_chunks = num_nodes // rows
-    counts = np.bincount(chunk_ids, minlength=n_chunks)
-    blocks_per_chunk = np.maximum(1, -(-counts // eblk))
-    n_blocks = int(blocks_per_chunk.sum())
-    if num_blocks is not None:
-        if n_blocks > num_blocks:
-            raise ValueError(f"need {n_blocks} blocks > requested {num_blocks}")
-        # distribute the extra blocks to chunk 0 (they hold only padding)
-        blocks_per_chunk[0] += num_blocks - n_blocks
-        n_blocks = num_blocks
-
-    E = n_blocks * eblk
-    src = np.zeros(E, np.int32)
-    dstl = np.zeros(E, np.int32)
-    etyp = np.zeros(E, np.int32)
-    mask = np.zeros(E, np.float32)
-    if ukey_vals is None and edge_canon is not None:
-        ukey_vals = edge_canon * 2 + (edge_src < edge_dst)
-    ukey = None if ukey_vals is None else np.zeros(E, np.int32)
-    chunk_of_block = np.zeros(n_blocks, np.int32)
-    first_of_chunk = np.zeros(n_blocks, np.int32)
-
-    starts = np.concatenate([[0], np.cumsum(counts)])
-    b = 0
-    for c in range(n_chunks):
-        idx = order[starts[c]:starts[c + 1]]
-        for k in range(int(blocks_per_chunk[c])):
-            sub = idx[k * eblk : (k + 1) * eblk]
-            n = len(sub)
-            o = b * eblk
-            src[o : o + n] = edge_src[sub]
-            dstl[o : o + n] = edge_dst[sub] - c * rows
-            etyp[o : o + n] = edge_type[sub]
-            mask[o : o + n] = 1.0
-            if ukey is not None:
-                ukey[o : o + n] = ukey_vals[sub]
-            chunk_of_block[b] = c
-            first_of_chunk[b] = 1 if k == 0 else 0
-            b += 1
-    return (src, dstl, etyp, mask, chunk_of_block, first_of_chunk, n_blocks,
-            ukey)
+    plans, _ = block_align_plans(edge_src, edge_dst, edge_type, edge_mask,
+                                 num_nodes, eblk, rows, num_blocks, edge_canon,
+                                 ukey_vals)
+    return plans[0]
 
 
 def block_align_edges_transposed(
@@ -166,12 +116,126 @@ def block_align_edges_transposed(
     the ORIGINAL dst (the rows of the output gradient to gather) and
     element 1 the ORIGINAL src local to its chunk (the dx row); ukey still
     keys the original orientation, so both plans drop the same edges."""
-    uv = None
-    if edge_canon is not None:
-        uv = (edge_canon * 2 + (edge_src < edge_dst)).astype(np.int32)
-    return block_align_edges(
-        edge_dst, edge_src, edge_type, edge_mask, num_nodes,
-        eblk=eblk, rows=rows, num_blocks=num_blocks, ukey_vals=uv)
+    plans, _ = block_align_plans(edge_src, edge_dst, edge_type, edge_mask,
+                                 num_nodes, eblk, rows, num_blocks, edge_canon,
+                                 forward=False, twin=True)
+    return plans[0]
+
+
+def block_align_plans(edge_src, edge_dst, edge_type, edge_mask, num_nodes: int,
+                      eblk: int = PLAN_EBLK, rows: int = PLAN_ROWS,
+                      num_blocks: Optional[int] = None,
+                      edge_canon: Optional[np.ndarray] = None,
+                      ukey_vals: Optional[np.ndarray] = None,
+                      forward: bool = True, twin: bool = False):
+    """The forward plan (block_align_edges) and / or its twin
+    (block_align_edges_transposed) of one edge list, in that order, and the
+    engine that built them: "native", one call into the C++ engine
+    (native/extract.cpp igmc_plan_blocks, counting sorts, the interpreter
+    lock released) when its library loads, else "numpy" (one stable sort
+    and one scatter per array and plan). Both give the same arrays."""
+    if num_nodes % rows:
+        raise ValueError(f"num_nodes {num_nodes} is not a multiple of rows {rows}")
+    keys, from_canon = ukey_vals, False
+    if keys is None and edge_canon is not None:
+        keys, from_canon = edge_canon, True
+    want = [forward, twin]
+    if native.available():
+        return _plans_native(edge_src, edge_dst, edge_type, edge_mask, num_nodes,
+                             eblk, rows, num_blocks, keys, from_canon, want), "native"
+    real = np.flatnonzero(edge_mask)
+    if len(real) and (edge_src[real].min() < 0 or edge_src[real].max() >= num_nodes
+                      or edge_dst[real].min() < 0 or edge_dst[real].max() >= num_nodes):
+        raise ValueError(f"edge endpoints outside [0, {num_nodes})")
+    if from_canon:
+        keys = edge_canon * 2 + (edge_src < edge_dst)
+    orients = [(edge_dst, edge_src), (edge_src, edge_dst)]
+    return [_plan_numpy(scatter, gather, edge_type, real, num_nodes, eblk, rows,
+                        num_blocks, keys)
+            for (scatter, gather), w in zip(orients, want) if w], "numpy"
+
+
+def _too_few_blocks(need: int, num_blocks: int) -> ValueError:
+    return ValueError(f"need {need} blocks > requested {num_blocks}")
+
+
+def _plan_numpy(scatter, gather, edge_type, real, num_nodes, eblk, rows,
+                num_blocks, keys):
+    """One plan with NumPy: edges sorted stably by (scatter row, etype), each
+    at slot block_start[chunk] * eblk + its rank in its chunk."""
+    key = (scatter[real].astype(np.int64) << 32) | edge_type[real].astype(np.int64)
+    order = real[np.argsort(key, kind="stable")]
+    row = scatter[order]
+    chunk = row // rows
+    counts = np.bincount(chunk, minlength=num_nodes // rows)
+    blocks = np.maximum(1, -(-counts // eblk))
+    n_blocks = int(blocks.sum())
+    if num_blocks is not None:
+        if n_blocks > num_blocks:
+            raise _too_few_blocks(n_blocks, num_blocks)
+        # the extra blocks hold only padding and go to chunk 0
+        blocks[0] += num_blocks - n_blocks
+        n_blocks = num_blocks
+    block_start = np.cumsum(blocks) - blocks
+    pos = (block_start[chunk] * eblk + np.arange(len(order))
+           - (np.cumsum(counts) - counts)[chunk])
+
+    E = n_blocks * eblk
+    out = [np.zeros(E, np.int32) for _ in range(3)] + [np.zeros(E, np.float32)]
+    for a, v in zip(out, (gather[order], row - chunk * rows, edge_type[order], 1.0)):
+        a[pos] = v
+    ukey = None
+    if keys is not None:
+        ukey = np.zeros(E, np.int32)
+        ukey[pos] = keys[order]
+    chunk_of_block = np.repeat(np.arange(len(blocks), dtype=np.int32), blocks)
+    first_of_chunk = np.zeros(n_blocks, np.int32)
+    first_of_chunk[block_start] = 1
+    return (*out, chunk_of_block, first_of_chunk, n_blocks, ukey)
+
+
+def _plans_native(edge_src, edge_dst, edge_type, edge_mask, num_nodes, eblk,
+                  rows, num_blocks, keys, from_canon, want):
+    lib = native.load()
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    ptr = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+    edges = [i32(edge_src), i32(edge_dst), i32(edge_type),
+             np.ascontiguousarray(edge_mask, dtype=bool),
+             None if keys is None else i32(keys)]
+    n_edges = len(edges[3])
+    if any(a is not None and a.shape != (n_edges,) for a in edges):
+        raise ValueError("the edge arrays differ in length")
+    needed = np.zeros(2, np.int64)
+    asked = -1 if num_blocks is None else int(num_blocks)
+    bits = sum(1 << p for p, w in enumerate(want) if w)
+
+    def call(out):
+        code = lib.igmc_plan_blocks(*map(ptr, edges), int(from_canon),
+                                    n_edges, int(num_nodes), int(rows),
+                                    int(eblk), asked, bits, ptr(needed), out)
+        if code == 2:
+            raise ValueError(f"edge endpoints outside [0, {num_nodes})")
+        if code >= 3:
+            raise _too_few_blocks(int(needed[code - 3]), num_blocks)
+        if code:
+            raise RuntimeError(f"igmc_plan_blocks failed with code {code}")
+
+    if num_blocks is None:
+        call(None)     # counts only: the blocks each plan needs
+    plans, out = [], (ctypes.c_void_p * 14)()
+    for p, w in enumerate(want):
+        if not w:
+            continue
+        nb = int(needed[p]) if num_blocks is None else num_blocks
+        E = nb * eblk
+        plan = (np.empty(E, np.int32), np.empty(E, np.int32),
+                np.empty(E, np.int32), np.empty(E, np.float32),
+                None if keys is None else np.empty(E, np.int32),
+                np.empty(nb, np.int32), np.empty(nb, np.int32))
+        out[7 * p : 7 * p + 7] = [None if a is None else a.ctypes.data for a in plan]
+        plans.append(plan[:4] + plan[5:] + (nb, plan[4]))
+    call(out)
+    return plans
 
 
 def _dst_global(aligned: Sequence[torch.Tensor], rows: int) -> torch.Tensor:

@@ -20,9 +20,15 @@
 // structure-of-arrays matching batching/dataset.py _PackedGraphs.
 //
 // C ABI (ctypes-friendly), two-phase: run -> query sizes -> fill -> free.
+//
+// The same library builds the fused R-GCN aggregate's block plans
+// (igmc_plan_blocks; igmc_torch/kernels/rgcn_aggregate.py
+// block_align_edges and its src-sorted twin) for a batch in one call, with
+// counting sorts: O(edges + nodes), no Python work per chunk or block.
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -181,6 +187,80 @@ void extract_one(const Engine& eng, Scratch& sc, int64_t link_u,
   for (int32_t j = 0; j < nv; ++j) out.node_label[nu + j] = 2 * v_dist[j] + 1;
 }
 
+// One block plan: edges sorted stably by (scatter row, etype), packed into
+// blocks of `eblk` slots such that a block only holds edges of one chunk
+// of `rows` scatter rows. `scatter` is edge_dst for the forward plan and
+// edge_src for the twin, `gather` the other endpoint; `degree` counts the
+// real edges of each scatter row.
+struct PlanOut {
+  int32_t *gather, *local, *etype;
+  float* mask;
+  int32_t *ukey, *chunk_of_block, *first_of_chunk;
+};
+
+// An edge's dropout key, the same in both plans: edge_canon * 2 + (src <
+// dst) from the edges' canonical ids, or a key given per edge.
+struct EdgeKeys {
+  const int32_t *in, *src, *dst;
+  bool from_canon;
+  int32_t operator()(int32_t e) const {
+    return from_canon ? (int32_t)((int64_t)in[e] * 2 + (src[e] < dst[e])) : in[e];
+  }
+};
+
+// Blocks each chunk needs, max(1, ceil(edges / eblk)); returns their sum.
+int64_t chunk_blocks(const std::vector<int64_t>& degree, int64_t rows,
+                     int64_t eblk, std::vector<int64_t>& blocks) {
+  int64_t total = 0;
+  for (size_t c = 0; c < blocks.size(); ++c) {
+    int64_t edges = 0;
+    for (int64_t r = c * rows; r < (int64_t)(c + 1) * rows; ++r) edges += degree[r];
+    blocks[c] = std::max<int64_t>(1, (edges + eblk - 1) / eblk);
+    total += blocks[c];
+  }
+  return total;
+}
+
+// Lays the chunks' blocks out (the `num_blocks - needed` padding blocks
+// join chunk 0), then gives each real edge, taken in (etype, index) order
+// (`by_etype`), the next free slot of its scatter row: a row's slots
+// follow those of the rows before it in its chunk, so the slots come out
+// in (row, etype, index) order. Then writes every slot in turn, padding
+// slots as zeros.
+void fill_plan(const int32_t* scatter, const int32_t* gather,
+               const int32_t* etype, const std::vector<int32_t>& by_etype,
+               const std::vector<int64_t>& degree,
+               const std::vector<int64_t>& blocks, int64_t needed,
+               const EdgeKeys& keys, int64_t rows, int64_t eblk,
+               int64_t num_blocks, const PlanOut& out) {
+  std::vector<int64_t> next(degree.size());  // each row's next free slot
+  int64_t block = 0;
+  for (size_t c = 0; c < blocks.size(); ++c) {
+    int64_t slot = block * eblk;
+    for (int64_t r = c * rows; r < (int64_t)(c + 1) * rows; ++r) {
+      next[r] = slot;
+      slot += degree[r];
+    }
+    const int64_t nb = blocks[c] + (c == 0 ? num_blocks - needed : 0);
+    for (int64_t k = 0; k < nb; ++k, ++block) {
+      out.chunk_of_block[block] = (int32_t)c;
+      out.first_of_chunk[block] = k == 0;
+    }
+  }
+  const int64_t slots = num_blocks * eblk;
+  std::vector<int32_t> edge_of(slots, -1);
+  for (int32_t e : by_etype) edge_of[next[scatter[e]]++] = e;
+  for (int64_t s = 0; s < slots; ++s) {
+    const int32_t e = edge_of[s];
+    const bool real = e >= 0;
+    out.gather[s] = real ? gather[e] : 0;
+    out.local[s] = real ? (int32_t)(scatter[e] % rows) : 0;
+    out.etype[s] = real ? etype[e] : 0;
+    out.mask[s] = real ? 1.0f : 0.0f;
+    if (out.ukey) out.ukey[s] = real ? keys(e) : 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,9 +339,91 @@ void igmc_extract_fill(void* handle, const int64_t* node_offsets,
 
 void igmc_extract_free(void* handle) { delete (Engine*)handle; }
 
+// The fused aggregate's block plans of one batch, from one read of its
+// edge arrays: the dst-sorted plan (bit 0 of `want`) and its src-sorted
+// twin (bit 1), each edge in the slot block_align_edges and
+// block_align_edges_transposed give it. Real edges are those with
+// edge_mask[e] != 0. `ukey_in` (NULL: no ukey) holds per-edge values: with
+// `ukey_from_canon` they are edge_canon and an edge's key is
+// edge_canon * 2 + (src < dst), else they are the keys. `num_blocks` < 0
+// plans exactly the blocks needed. `needed[p]` gets the blocks plan p
+// needs. `out` holds 7 pointers a plan, the forward's then the twin's:
+// gather, local, etype, mask (float), ukey (NULL without keys),
+// chunk_of_block, first_of_chunk, of num_blocks * eblk slots or num_blocks
+// blocks each; with `out` NULL the call only counts. The twin is filled on
+// a second thread. Returns 0, or 1 (num_nodes not a multiple of rows), 2
+// (an endpoint outside [0, num_nodes)), 3 + p (plan p needs more than
+// num_blocks blocks).
+int32_t igmc_plan_blocks(const int32_t* edge_src, const int32_t* edge_dst,
+                         const int32_t* edge_type, const uint8_t* edge_mask,
+                         const int32_t* ukey_in, int32_t ukey_from_canon,
+                         int64_t n_edges, int64_t num_nodes, int64_t rows,
+                         int64_t eblk, int64_t num_blocks, int32_t want,
+                         int64_t* needed, void* const* out) {
+  if (rows <= 0 || eblk <= 0 || num_nodes % rows) return 1;
+  std::vector<int32_t> real;
+  real.reserve(n_edges);
+  std::vector<int64_t> degree[2] = {std::vector<int64_t>(num_nodes, 0),
+                                    std::vector<int64_t>(num_nodes, 0)};
+  int32_t lo = INT32_MAX, hi = INT32_MIN;
+  for (int64_t e = 0; e < n_edges; ++e) {
+    if (!edge_mask[e]) continue;
+    const int32_t s = edge_src[e], d = edge_dst[e];
+    if (s < 0 || s >= num_nodes || d < 0 || d >= num_nodes) return 2;
+    real.push_back((int32_t)e);
+    ++degree[0][d];
+    ++degree[1][s];
+    lo = std::min(lo, edge_type[e]);
+    hi = std::max(hi, edge_type[e]);
+  }
+  std::vector<int64_t> blocks[2];
+  for (int p = 0; p < 2; ++p) {
+    if (!(want & (1 << p))) continue;
+    blocks[p].resize(num_nodes / rows);
+    needed[p] = chunk_blocks(degree[p], rows, eblk, blocks[p]);
+    if (num_blocks >= 0 && needed[p] > num_blocks) return 3 + p;
+  }
+  if (!out) return 0;
+
+  // the real edges stably by relation, for both plans: a counting sort
+  // over the relations' range, or a comparison sort if it is wide
+  std::vector<int32_t> by_etype(real.size());
+  if (!real.empty() && (int64_t)hi - lo <= (int64_t)real.size() + 1024) {
+    std::vector<int64_t> at((int64_t)hi - lo + 2, 0);
+    for (int32_t e : real) ++at[edge_type[e] - lo + 1];
+    for (size_t r = 1; r < at.size(); ++r) at[r] += at[r - 1];
+    for (int32_t e : real) by_etype[at[edge_type[e] - lo]++] = e;
+  } else {
+    by_etype = real;
+    std::stable_sort(by_etype.begin(), by_etype.end(), [edge_type](int32_t a, int32_t b) {
+      return edge_type[a] < edge_type[b];
+    });
+  }
+  const EdgeKeys keys{ukey_in, edge_src, edge_dst, ukey_from_canon != 0};
+  const int32_t* scatter[2] = {edge_dst, edge_src};
+  const int32_t* gather[2] = {edge_src, edge_dst};
+  auto fill = [&](int p) {
+    void* const* o = out + 7 * p;
+    const PlanOut plan{(int32_t*)o[0], (int32_t*)o[1], (int32_t*)o[2],
+                       (float*)o[3],   (int32_t*)o[4], (int32_t*)o[5],
+                       (int32_t*)o[6]};
+    fill_plan(scatter[p], gather[p], edge_type, by_etype, degree[p], blocks[p],
+              needed[p], keys, rows, eblk,
+              num_blocks < 0 ? needed[p] : num_blocks, plan);
+  };
+  if (want == 3) {
+    std::thread twin(fill, 1);
+    fill(0);
+    twin.join();
+  } else if (want) {
+    fill(want == 2);
+  }
+  return 0;
+}
+
 // Bump on any signature change; the ctypes loader refuses/rebuilds a .so
 // whose version (or absence of this symbol) does not match, instead of
 // calling through a misaligned ABI.
-int32_t igmc_extract_abi_version() { return 2; }
+int32_t igmc_extract_abi_version() { return 3; }
 
 }  // extern "C"

@@ -36,7 +36,8 @@ The program's spans and counters (PERF.md §3 names the metric each feeds):
     pass.plan, pass.assemble; counters train.steps, batch.edges,
     batch.edge_slots;
   * the loader's threads (batching/dataset.py): loader.fetch,
-    loader.collate, loader.plan, loader.pin.
+    loader.collate, loader.plan, loader.pin; counters loader.plans_native,
+    loader.plans_numpy (the block plans each engine built).
 
 Thread-safe: the loader's prefetch threads record beside the main thread.
 The state is the process's, as the kernels' launch counters are.
