@@ -219,8 +219,9 @@ def plan_rel_caps(etypes: Sequence[np.ndarray], num_relations: int,
     return tuple(int(-(-int(c) // base) * base) for c in caps)
 
 
-def _round8(v: int) -> int:
-    return int(-(-max(int(v), 8) // 8) * 8)
+def _round8(v):
+    """Round up to a multiple of 8, at least 8; elementwise on arrays."""
+    return -(-np.maximum(v, 8) // 8) * 8
 
 
 @dataclass(frozen=True)
@@ -243,8 +244,10 @@ def _plan_buckets_core(dims, width_of, make_bucket, max_buckets: int,
     rest node-side widths). Graphs are sorted by real width * edges; the
     DP over `grid` candidate cut points picks <= max_buckets contiguous
     segments minimising sum(count * width(maxima) * round8(edge max));
-    `make_bucket(maxima, indices)` builds each bucket from the rounded
-    member maxima, and shape-identical neighbours merge."""
+    `width_of` maps arrays of node-side maxima to arrays of slot widths.
+    Each DP step takes the minimum over every earlier cut point at once,
+    the first on ties. `make_bucket(maxima, indices)` builds each bucket
+    from the rounded member maxima, and shape-identical neighbours merge."""
     dims = [np.asarray(d, dtype=np.int64) for d in dims]
     n = len(dims[0])
     if n == 0:
@@ -254,24 +257,24 @@ def _plan_buckets_core(dims, width_of, make_bucket, max_buckets: int,
     sorted_dims = [d[order] for d in dims]
     cuts = np.unique(np.linspace(0, n, min(grid, n) + 1).astype(np.int64))
     C = len(cuts)
-    seg_max = [np.array([d[cuts[i]:cuts[i + 1]].max(initial=0)
-                         for i in range(C - 1)]) for d in sorted_dims]
+    # run[d][i, j - 1]: the maximum of dim d over the cut segments i..j-1
+    upper = np.triu(np.ones((C - 1, C - 1), dtype=bool))
+    run = [np.maximum.accumulate(
+        np.where(upper, np.maximum.reduceat(d, cuts[:-1])[None, :], 0), axis=1)
+        for d in sorted_dims]
+    # w[i, j - 1]: the cost of one bucket holding graphs cuts[i]:cuts[j]
+    w = ((cuts[None, 1:] - cuts[:-1, None]) * width_of(run[:-1])
+         * _round8(run[-1])).astype(np.float64)
+    w[~upper] = np.inf
 
     k = max(1, int(max_buckets))
     dp = np.full((C, k + 1), float("inf"))
     dp[0, 0] = 0.0
     parent = np.zeros((C, k + 1), np.int64)
-    for i in range(C - 1):
-        run = [0] * len(dims)
-        for j in range(i + 1, C):
-            for d in range(len(dims)):
-                run[d] = max(run[d], int(seg_max[d][j - 1]))
-            w = (cuts[j] - cuts[i]) * width_of(run[:-1]) * _round8(run[-1])
-            for b in range(1, k + 1):
-                v = dp[i, b - 1] + w
-                if v < dp[j, b]:
-                    dp[j, b] = v
-                    parent[j, b] = i
+    for b in range(1, k + 1):
+        v = dp[:-1, b - 1, None] + w
+        parent[1:, b] = np.argmin(v, axis=0)
+        dp[1:, b] = v.min(axis=0)
 
     segs = []
     j, b = C - 1, int(np.argmin(dp[C - 1, 1:]) + 1)
@@ -283,7 +286,8 @@ def _plan_buckets_core(dims, width_of, make_bucket, max_buckets: int,
 
     buckets: List[DenseBucket] = []
     for i, j in segs:
-        nb = make_bucket([_round8(d[i:j].max()) for d in sorted_dims], order[i:j])
+        nb = make_bucket([int(_round8(d[i:j].max())) for d in sorted_dims],
+                         order[i:j])
         last = buckets[-1] if buckets else None
         if last is not None and (nb.node_slot, nb.edge_slot, nb.num_u_slot) == (
                 last.node_slot, last.edge_slot, last.num_u_slot):
