@@ -2759,10 +2759,10 @@ def _visualize_check(raw_data, cwd12, cli_wall, smi):
     from igmc_torch.cli.main import (build_datasets, build_model, build_parser,
                                      choose_layouts, load_split, rating_maps)
     from igmc_torch.device import resolve_device
+    from igmc_torch.models import set_flat_engine
     from igmc_torch.train import (load_checkpoint, make_eval_step, predict_all,
                                   resolve_checkpoint, test_once)
     from igmc_torch.train import visualize as vis
-    from igmc_torch.train.loop import _flat_model
     from igmc_torch.utils.pdf import check_pdf
 
     res12 = os.path.join(cwd12, "results", "ml_1m_testmode")
@@ -2827,7 +2827,7 @@ def _visualize_check(raw_data, cwd12, cli_wall, smi):
             vis.visualize(model, test_graphs, out_dir, "ml_1m", split.class_values,
                           batch_size=BATCH_SIZE, device="cuda")
         dev = resolve_device("cuda")
-        card = _flat_model(copy.deepcopy(model).to(dev).eval(), "segment")
+        card = set_flat_engine(copy.deepcopy(model).to(dev).eval(), "segment")
         own, _ = predict_all(make_eval_step(card), BatchLoader(test_graphs, BATCH_SIZE),
                              dev)
     finally:

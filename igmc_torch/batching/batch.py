@@ -35,6 +35,32 @@ from ..graphs.extract import Subgraph
 # graph has fewer than 2**31 forward edges.
 DYNAMIC_EDGE_STRIDE = 1 << 31
 
+# The flat layout's aggregate engines. Every `flat_aggregate` argument of
+# the package (the loops, BatchLoader, IGMCConfig, the CLI) is resolved by
+# flat_engine: None, "segment" and "auto" (the JAX package's spellings)
+# name the segment engine, which needs no host-built plans.
+FLAT_ENGINES = ("segment", "blocked", "pallas")
+
+
+def flat_engine(flat_aggregate) -> str:
+    """The flat engine a flat_aggregate argument names: 'segment' for
+    None, 'segment' and 'auto'; 'blocked' and 'pallas' themselves. Any
+    other value raises ValueError."""
+    if flat_aggregate in (None, "auto"):
+        return "segment"
+    if flat_aggregate in FLAT_ENGINES:
+        return flat_aggregate
+    raise ValueError(f"unknown flat_aggregate {flat_aggregate!r} "
+                     f"(segment|auto|blocked|pallas)")
+
+
+def planned_engine(flat_aggregate) -> Optional[str]:
+    """flat_engine's engine when it runs over plans built on the host with
+    the batch (GraphBatch.blocked, .aligned): 'blocked' or 'pallas'; None
+    for the segment engine."""
+    engine = flat_engine(flat_aggregate)
+    return None if engine == "segment" else engine
+
 
 @dataclass
 class GraphBatch:

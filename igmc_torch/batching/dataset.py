@@ -55,7 +55,8 @@ from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_plans,
                                       plan_capacity_blocks)
 from ..ops.blocked import plan_blocked_edges
 from ..utils import spans
-from .batch import GraphBatch, bucket_for, collate, pad_ladder, topk_sum_bound
+from .batch import (GraphBatch, bucket_for, collate, pad_ladder, planned_engine,
+                    topk_sum_bound)
 from .dense import collate_dense
 
 # Compress .npz caches only up to this many raw bytes (zlib at ~3 MB/s
@@ -338,8 +339,8 @@ class BatchLoader:
 
     `batch_mode="flat"` yields GraphBatches whose (node_pad, edge_pad)
     come from geometric ladders, with `edge_id` keyed by the graphs'
-    dataset ids. `flat_aggregate` None, "segment" or "auto" attaches no
-    plan; "blocked" the blocked engine's plans (batch.blocked) and
+    dataset ids. `flat_aggregate` (flat_engine's spellings) None,
+    "segment" or "auto" attaches no plan; "blocked" the blocked engine's plans (batch.blocked) and
     "pallas" the aggregate kernel's (batch.aligned), both sized by
     plan_capacity_blocks so every batch of one bucket has the same plan
     shape, with output chunks of `plan_rows` node rows and blocks of
@@ -396,11 +397,7 @@ class BatchLoader:
             raise ValueError(f"rank {rank} outside {max(n_devices, 1)} devices")
         if batch_mode not in ("flat", "dense"):
             raise ValueError(f"unknown batch_mode {batch_mode!r} (flat|dense)")
-        if flat_aggregate in ("segment", "auto"):
-            flat_aggregate = None
-        if flat_aggregate not in (None, "blocked", "pallas"):
-            raise ValueError(f"unknown flat_aggregate {flat_aggregate!r} "
-                             f"(segment|auto|blocked|pallas)")
+        flat_aggregate = planned_engine(flat_aggregate)
         if batch_mode == "dense" and flat_aggregate is not None:
             raise ValueError("batch_mode='dense' conflicts with flat_aggregate")
         if flat_aggregate is not None and n_devices > 1:

@@ -359,6 +359,7 @@ def build_model(args, split, n_features=0, train_graphs=None):
     training graphs, or 30 for a dataset without node counts)."""
     import torch
 
+    from ..batching import flat_engine
     from ..models import (DGCNN, GNN, IGMC, DGCNNConfig, GNNConfig, IGMCConfig,
                           sortpool_k_from_dataset)
 
@@ -380,8 +381,7 @@ def build_model(args, split, n_features=0, train_graphs=None):
                          compute_dtype=(None if args.compute_dtype == "float32"
                                         else args.compute_dtype),
                          conv_strategy=args.conv_strategy,
-                         flat_aggregate=("segment" if args.flat_aggregate == "auto"
-                                         else args.flat_aggregate))
+                         flat_aggregate=flat_engine(args.flat_aggregate))
         model = IGMC(cfg, gen)
     elif args.model == "gnn":
         model = GNN(GNNConfig(num_features=num_features,
@@ -439,8 +439,9 @@ def choose_layouts(args, train_graphs):
     dynamic data, --dense-strategy adjacency or a model other than igmc,
     and --flat-aggregate blocked or pallas with a model other than igmc.
     Dynamic data and the other families get the unified layout."""
-    flat_aggregate = (None if args.flat_aggregate in ("auto", "segment")
-                      else args.flat_aggregate)
+    from ..batching import planned_engine
+
+    flat_aggregate = planned_engine(args.flat_aggregate)
     if flat_aggregate is not None and args.model != "igmc":
         raise SystemExit("--flat-aggregate blocked/pallas applies to the "
                          "R-GCN trunk; use --model igmc")

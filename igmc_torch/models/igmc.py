@@ -8,7 +8,8 @@ of the target user and target item from every layer, then relu(lin1),
 feature dropout 0.5 in training, and lin2, times `multiply_by`.
 
   * Flat GraphBatch: `flat_aggregate` names the engine of every layer's
-    aggregate. "segment" (the default, as in the JAX package): rgcn_apply
+    aggregate (batching/batch.py flat_engine reads its spellings).
+    "segment" (the default, as in the JAX package): rgcn_apply
     (models/rgcn.py) with `conv_strategy`, aggr mean, sum or relmean,
     `compute_dtype` float32 or bfloat16. "blocked": the scatter-free
     blocked engine (ops/blocked.py) over the batch's `blocked` plans
@@ -44,14 +45,14 @@ so that tests can feed them the JAX package's masks.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..batching.batch import GraphBatch
+from ..batching.batch import GraphBatch, flat_engine
 from ..batching.dense import DenseBatch
 from ..kernels.rgcn_aggregate import PLAN_ROWS, _dst_global, rgcn_aggregate
 from ..ops.blocked import (blocked_degree, blocked_rel_counts,
@@ -67,7 +68,6 @@ FEATURE_DROPOUT = 0.5  # dropout after relu(lin1) in training
 # auto = edge; edge-k = edge (the JAX package's per-basis scatters compute
 # the edge form's function, so the port runs the edge code for it)
 DENSE_STRATEGIES = ("auto", "edge", "edge-k", "adjacency")
-FLAT_AGGREGATES = ("segment", "blocked", "pallas")
 
 
 @dataclass(frozen=True)
@@ -85,7 +85,7 @@ class IGMCConfig:
     aggr: str = "mean"                     # mean/sum/relmean (pallas: mean/sum)
     dense_strategy: str = "auto"           # DENSE_STRATEGIES
     compute_dtype: Optional[str] = None    # None (float32) or "bfloat16"
-    flat_aggregate: str = "segment"        # flat engine: FLAT_AGGREGATES
+    flat_aggregate: str = "segment"        # flat engine: batching flat_engine
     pallas_rows: int = PLAN_ROWS           # output-chunk rows of the aggregate kernels
 
 
@@ -146,10 +146,7 @@ class IGMC(nn.Module):
     def _flat_states(self, batch: GraphBatch, edge_noise) -> torch.Tensor:
         """[B, 2 * sum(latent)]: the target user's and target item's states
         of every layer, through the engine cfg.flat_aggregate names."""
-        engine = self.cfg.flat_aggregate
-        if engine not in FLAT_AGGREGATES:
-            raise ValueError(f"unknown flat_aggregate {engine!r} "
-                             f"({'|'.join(FLAT_AGGREGATES)})")
+        engine = flat_engine(self.cfg.flat_aggregate)
         states = {"segment": self._segment_states, "blocked": self._blocked_states,
                   "pallas": self._fused_states}[engine](batch, edge_noise)
         concat_states = torch.cat(states, dim=1)        # [N, sum(latent)]
@@ -403,6 +400,20 @@ def igmc_forward_dense_chunked(model: IGMC, batch: DenseBatch, chunk: int,
     return torch.cat([model(b, slice_noise(noise, s, s + chunk))
                       for s, b in zip(range(0, batch.num_graphs, chunk),
                                       chunk_dense_batch(batch, chunk))])
+
+
+def set_flat_engine(model: nn.Module, flat_aggregate) -> nn.Module:
+    """`model`, set to run the flat engine `flat_aggregate` names
+    (flat_engine): an IGMC's cfg.flat_aggregate is replaced; the other
+    families run the segment engine only, and any other engine raises
+    ValueError. Returns `model`."""
+    engine = flat_engine(flat_aggregate)
+    if isinstance(model, IGMC):
+        model.cfg = replace(model.cfg, flat_aggregate=engine)
+    elif engine != "segment":
+        raise ValueError(f"flat_aggregate={engine!r} applies to the R-GCN trunk of "
+                         f"IGMC, not to {type(model).__name__}")
+    return model
 
 
 def arr_regularizer(model: nn.Module) -> torch.Tensor:

@@ -1,52 +1,48 @@
 """Training and evaluation: masked MSE + ARR, Adam with step LR decay,
 RMSE of one model or of a checkpoint ensemble.
 
-Port of igmc_tpu/train/loop.py on one device, for every model family
-(IGMC, GNN, DGCNN, DGCNN_RS: `model(batch, noise)` -> [B] predictions,
-ARR over its R-GCN layers), in two layouts:
+Port of igmc_tpu/train/loop.py for every model family (IGMC, GNN, DGCNN,
+DGCNN_RS: `model(batch, noise)` -> [B] predictions, ARR over its R-GCN
+layers). train_multiple_epochs and test_once pick one of two paths once
+(_choose_path) from the layout (`batch_mode`), the flat engine
+(`flat_aggregate`, as batching/batch.py flat_engine reads it), the data
+(packed arrays or not), `superbatch` and `mesh`; train_multiple_epochs_ep
+and test_once_ep run the third. Every path runs one epoch loop
+(_run_epochs) and one evaluation tail (_evaluate):
 
-  * dense (``batch_mode="dense"``, the JAX CLI's default for static data):
-    the packed datasets live on the device (batching/device_data.py), the
-    graphs are planned into size buckets (unified or bipartite slots), and
-    each step assembles its DenseBatch on the device from a row of graph
-    ids. plan_dense_epoch is the JAX package's, so for one (seed, epoch,
-    superbatch) the port steps through the same batches in the same order:
-    one optimizer step per live row of each [K, B] unit, where the JAX
-    package scans the K rows in one dispatch. With ``dense_chunk`` N (giant
-    batches) each row's step streams its graphs in N-graph slices,
-    accumulating the slices' gradients into one optimizer step, and
-    evaluation runs in N-graph rows.
-    A dataset without packed arrays (DynamicGraphDataset) runs the dense
-    layout host-collated instead: BatchLoader(batch_mode="dense") extracts
-    and collates unified slot batches on its prefetch threads, one step
-    per batch, as the JAX package's dynamic dense path.
-  * flat (``batch_mode="flat"``, every family): `flat_aggregate` names
-    the engine, as in the JAX package. None, "segment" or "auto": the
-    segment engine; packed datasets with superbatch > 1 run
-    device-resident (each step assembles its GraphBatch on the device from
-    a row of graph ids, batching/device_data.py assemble_batch; the epoch
-    is the JAX package's plan_gid_epoch of SeedSequence([seed, epoch])'s
-    permutation, one step per live row), dynamic datasets and
-    superbatch <= 1 host-collated through BatchLoader, one step per batch
-    (the JAX package scans a superbatch of them, padded to the ladder
-    maximum). "blocked" (IGMC): the blocked engine over host-built plans;
-    "pallas" (IGMC): the fused aggregate kernels over host-built plans;
-    the plans are built on the loader's prefetch threads. The loop sets
-    the IGMC copy's cfg.flat_aggregate to the engine it runs.
+  * device-resident (_ResidentPath): the packed datasets live on the
+    device (batching/device_data.py) and each step assembles its batch
+    there from a row of graph ids, one optimizer step per live row of
+    each [K, B] unit (the JAX package scans the K rows in one dispatch).
+    The dense layout (the JAX CLI's default for static data) plans the
+    graphs into size buckets (unified or bipartite slots) with the JAX
+    package's plan_dense_epoch, so for one (seed, epoch, superbatch) the
+    port steps through the same batches in the same order; `dense_chunk`
+    N streams each row in N-graph slices into one optimizer step (giant
+    batches) and evaluates in N-graph rows. The flat segment engine runs
+    here on packed data with superbatch > 1: the JAX package's
+    plan_gid_epoch of SeedSequence([seed, epoch])'s permutation.
+  * host-collated (_HostPath): BatchLoader extracts, collates and plans
+    on its prefetch threads, one step per batch (the JAX package scans a
+    superbatch of them, padded to the ladder maximum): dynamic data on
+    the dense layout (unified slot batches), the flat segment engine on
+    dynamic data or with superbatch <= 1, and the blocked and pallas
+    engines (IGMC only) over their host-built plans.
+  * edge-partitioned (_EdgePartitionedPath, parallel/ep.py): every batch
+    is one giant disjoint batch-graph split over the mesh's ranks.
+On the flat layout the model copy's cfg.flat_aggregate is set to the
+engine the path runs (models/igmc.py set_flat_engine).
 
 Several devices (`mesh`, parallel/mesh.py: one process per device over
 torch.distributed; the JAX package's mesh branches): the dense layout runs
-data-parallel device-resident (every rank holds the packed datasets and
-plans the same epoch; rank r assembles columns [r * B/D, (r + 1) * B/D) of
-each gid row) or host-collated for dynamic data (BatchLoader(n_devices=D,
-rank=r)); the flat layout runs data-parallel on the segment engine,
-host-collated with the loader's n_devices split. The gradients are summed
-with one all_reduce per step (parallel/dp.py); a rank takes its rows of
-the whole batch's noise, so a DP step is the single-device step on the
-whole batch, dropout included. Rank 0 alone prints, calls `logger` and so
-writes checkpoints; every rank waits at a barrier before loading one and
-after the last epoch. train_multiple_epochs_ep and test_once_ep run the
-edge-partitioned giant batches of parallel/ep.py.
+data-parallel device-resident (rank r assembles columns [r * B/D,
+(r + 1) * B/D) of each gid row) or host-collated for dynamic data, the
+flat layout host-collated on the segment engine (BatchLoader(n_devices=D,
+rank=r)). The gradients are summed with one all_reduce per step
+(parallel/dp.py); a rank takes its rows of the whole batch's noise, so a
+DP step is the single-device step on the whole batch, dropout included.
+Rank 0 alone prints, calls `logger` and so writes checkpoints; every rank
+waits at a barrier before loading one and after the last epoch.
 
 Sums stay on the device across batches and steps, an epoch's graph ids and
 noise masks are uploaded at once (device-resident datasets), and each
@@ -56,7 +52,6 @@ epoch's train loss and each RMSE cost one host sync.
 from __future__ import annotations
 
 import copy
-import dataclasses
 import itertools
 import math
 import os
@@ -67,13 +62,13 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..batching.batch import GraphBatch
+from ..batching.batch import GraphBatch, planned_engine
 from ..batching.dataset import BatchLoader
 from ..batching.dense import plan_bipartite_buckets, plan_dense_buckets
 from ..batching.device_data import (DeviceDataset, assemble_batch, assemble_dense,
                                    capacity_bound, live_rows, plan_gid_epoch)
 from ..device import resolve_device
-from ..models.igmc import IGMC, arr_regularizer, draw_noise, slice_noise
+from ..models.igmc import arr_regularizer, draw_noise, set_flat_engine, slice_noise
 from ..parallel.dp import make_dp_train_step, rank_columns, rank_noise
 from ..utils import spans
 from ..utils.progress import Heartbeat
@@ -327,22 +322,6 @@ def predict_all(eval_fn: Callable, loader: BatchLoader, device):
     return torch.cat(preds).cpu().numpy(), torch.cat(ys).cpu().numpy()
 
 
-def eval_rmse_ensemble(model: torch.nn.Module, checkpoints,
-                       loader: BatchLoader, device) -> float:
-    """Average raw predictions across checkpoints, then one RMSE. Each
-    checkpoint is loaded into `model` in turn."""
-    outs = []
-    ys = None
-    for ckpt in checkpoints:
-        model.load_state_dict(load_checkpoint(ckpt))
-        p, y = predict_all(make_eval_step(model), loader, device)
-        outs.append(p)
-        if ys is None:
-            ys = y
-    mean_pred = np.stack(outs, axis=1).mean(axis=1)
-    return math.sqrt(float(np.mean((mean_pred - ys) ** 2)))
-
-
 def plan_dense_epoch(buckets, batch_graphs: int, superbatch: int,
                      rng: Optional[np.random.Generator] = None):
     """Work units for one pass over dense buckets, as the JAX package plans
@@ -513,55 +492,257 @@ def dense_predict_all(eval_fn: Callable, dd: DeviceDataset, epoch: DensePass,
     return preds[:G].cpu().numpy()
 
 
-def _no_flat_engine(batch_mode: str, flat_aggregate):
-    """flat_aggregate as the dense layout reads it: 'segment' and 'auto'
-    name no flat engine there, as in the JAX package."""
-    if batch_mode == "dense" and flat_aggregate in ("segment", "auto"):
-        return None
-    return flat_aggregate
+def _ensemble_rmse(model: torch.nn.Module, checkpoints, predict: Callable) -> float:
+    """RMSE of the mean raw prediction over `checkpoints`, each loaded
+    into `model` in turn; `predict(model)` -> (predictions, targets) in
+    one fixed order."""
+    outs = []
+    for ckpt in checkpoints:
+        model.load_state_dict(load_checkpoint(ckpt))
+        preds, ys = predict(model)
+        outs.append(preds)
+    mean_pred = np.stack(outs, axis=1).mean(axis=1)
+    return math.sqrt(float(np.mean((mean_pred - ys) ** 2)))
 
 
-def flat_engine(flat_aggregate) -> str:
-    """The flat layout's engine of a flat_aggregate argument: None,
-    'segment' and 'auto' name the segment engine, as in the JAX package;
-    'blocked' and 'pallas' themselves."""
-    if flat_aggregate in (None, "segment", "auto"):
-        return "segment"
-    if flat_aggregate in ("blocked", "pallas"):
-        return flat_aggregate
-    raise ValueError(f"unknown flat_aggregate {flat_aggregate!r} "
-                     f"(segment|auto|blocked|pallas)")
+def eval_rmse_ensemble(model: torch.nn.Module, checkpoints,
+                       loader: BatchLoader, device) -> float:
+    """Average raw predictions across checkpoints, then one RMSE. Each
+    checkpoint is loaded into `model` in turn."""
+    return _ensemble_rmse(model, checkpoints,
+                          lambda m: predict_all(make_eval_step(m), loader, device))
 
 
-def _check_layout(batch_mode: str, flat_aggregate) -> str:
-    """Refuse an unknown batch_mode or engine; returns the flat engine."""
+class _ResidentPath:
+    """Device-resident datasets: each training epoch a DensePass over the
+    training set's size buckets (`dense` = (dense_layout, max buckets)) or,
+    on the flat layout (`dense` None), a FlatPass, planned from the JAX
+    package's epoch rng; the test set's pass planned once."""
+
+    def __init__(self, train_dataset, test_dataset, batch_size: int, superbatch: int,
+                 dense_chunk: int, dense, dev, mesh, seed: int):
+        self.train_dataset, self.test_dataset = train_dataset, test_dataset
+        self.dev, self.mesh, self.seed, self.chunk = dev, mesh, seed, dense_chunk
+        K = max(superbatch, 1)
+        if train_dataset is not None:
+            self.dd_train = DeviceDataset(train_dataset.packed, dev)
+        self.dd_test = DeviceDataset(test_dataset.packed, dev)
+        if dense is None:
+            self.test_pass = FlatPass.plan(test_dataset, batch_size, K, dev)
+            self._plan = lambda rng: FlatPass.plan(
+                train_dataset, batch_size, K, dev,
+                rng.permutation(len(train_dataset)).astype(np.int64))
+        else:
+            buckets = (None if train_dataset is None
+                       else plan_buckets(train_dataset, *dense))
+            self.test_pass = DensePass.plan(plan_buckets(test_dataset, *dense),
+                                            dense_chunk or batch_size, K, dev)
+            self._plan = lambda rng: DensePass.plan(buckets, batch_size, K, dev, rng)
+
+    def step(self, model, optimizer, ARR: float) -> Callable:
+        if self.mesh is not None:
+            return make_dp_row_step(model, optimizer, self.mesh, ARR)
+        return make_dense_row_step(model, optimizer, self.chunk, ARR)
+
+    def train(self, step_fn: Callable, epoch: int):
+        """(train loss, seconds of the epoch's plan)."""
+        t0 = time.perf_counter()
+        # the JAX package's epoch rng: the same buckets' permutations and
+        # unit order for a given (seed, epoch)
+        epoch_pass = self._plan(np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch])))
+        host_seconds = time.perf_counter() - t0
+        return dense_train_epoch(step_fn, self.dd_train, epoch_pass,
+                                 _noise_generator(self.seed, epoch),
+                                 len(self.train_dataset)), host_seconds
+
+    def rmse(self, model):
+        return dense_eval_rmse(make_eval_step(model), self.dd_test, self.test_pass,
+                               mesh=self.mesh), 0.0
+
+    def predict(self, model):
+        return (dense_predict_all(make_eval_step(model), self.dd_test, self.test_pass),
+                np.asarray(self.test_dataset.packed.y, np.float32))
+
+    def suffix(self) -> str:
+        return ""
+
+
+class _HostPath:
+    """Host-collated batches: a shuffled training BatchLoader and an
+    ordered test one, both with `loader_kw`; the seconds spent waiting for
+    their batches are the host's share."""
+
+    def __init__(self, train_dataset, test_dataset, batch_size: int, loader_kw: dict,
+                 dev, mesh, seed: int):
+        self.dev, self.mesh, self.seed = dev, mesh, seed
+        if train_dataset is not None:
+            self.train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
+                                            seed=seed, **loader_kw)
+        self.test_loader = BatchLoader(test_dataset, batch_size, **loader_kw)
+
+    def step(self, model, optimizer, ARR: float) -> Callable:
+        if self.mesh is not None:
+            return make_dp_train_step(model, optimizer, self.mesh, ARR)
+        return make_train_step(model, optimizer, ARR)
+
+    def train(self, step_fn: Callable, epoch: int):
+        """(train loss, seconds waited for the training batches)."""
+        # shuffle under the ABSOLUTE epoch number, so a resumed run
+        # replays the orders the uninterrupted run would have used
+        self.train_loader.epoch = epoch
+        timed = _Timed(self.train_loader)
+        return train_epoch(step_fn, timed, _noise_generator(self.seed, epoch),
+                           len(self.train_loader.dataset), self.dev,
+                           self.mesh), timed.seconds
+
+    def rmse(self, model):
+        timed = _Timed(self.test_loader)
+        return eval_rmse(make_eval_step(model), timed, self.dev, self.mesh), timed.seconds
+
+    def predict(self, model):
+        return predict_all(make_eval_step(model), self.test_loader, self.dev)
+
+    def suffix(self) -> str:
+        n = self.train_loader.ladder_overflows
+        return f" [ladder overflows: {n}]" if n else ""
+
+
+def _ep_shards(dataset, batch_size: int, mesh, local_aggregate: str):
+    """(shards, blocked plans or None, gid chunks) of a dataset's EP giant
+    batches on this rank (build_ep_batches; with local_aggregate 'blocked'
+    the blocked plans, aligned to one block-count shape)."""
+    from ..parallel.ep import (build_ep_batches, build_ep_blocked, ep_shard,
+                               max_ep_blocked_blocks, pad_ep_blocked)
+
+    if local_aggregate not in ("segment", "blocked"):
+        raise ValueError(f"unknown EP local_aggregate {local_aggregate!r}")
+    eps, chunks = build_ep_batches(dataset, batch_size, mesh.size)
+    plans = None
+    if local_aggregate == "blocked":
+        built = [build_ep_blocked(e) for e in eps]
+        if len(built) > 1:
+            targets = max_ep_blocked_blocks(built)
+            built = [pad_ep_blocked(p, targets) for p in built]
+        plans = [p.shard(mesh.rank, mesh.device) for p in built]
+    return [ep_shard(e, mesh.rank, mesh.device) for e in eps], plans, chunks
+
+
+class _EdgePartitionedPath:
+    """EP giant batches (parallel/ep.py), collated and partitioned once:
+    each epoch permutes the visit order, edge dropout is the hash stream of
+    ep_step_seed (no noise generator), and the host's share is not timed."""
+
+    def __init__(self, train_dataset, test_dataset, batch_size: int, mesh,
+                 local_aggregate: str, seed: int = 1):
+        self.train_dataset, self.test_dataset = train_dataset, test_dataset
+        self.dev, self.mesh, self.seed = mesh.device, mesh, seed
+        if train_dataset is not None:
+            self.train_shards, self.train_plans, _ = _ep_shards(
+                train_dataset, batch_size, mesh, local_aggregate)
+        self.test_shards, self.test_plans, self.chunks = _ep_shards(
+            test_dataset, batch_size, mesh, local_aggregate)
+        self._ys = None
+
+    def step(self, model, optimizer, ARR: float) -> Callable:
+        from ..parallel.ep import make_ep_train_step
+
+        return make_ep_train_step(model, optimizer, self.mesh, ARR)
+
+    def train(self, step_fn: Callable, epoch: int):
+        from ..parallel.ep import ep_train_epoch
+
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
+        total = ep_train_epoch(step_fn, self.train_shards, self.seed, epoch, rng,
+                               self.train_plans)
+        return (0.0 if total is None
+                else float(total) / max(len(self.train_dataset), 1)), 0.0
+
+    def rmse(self, model):
+        from ..parallel.ep import ep_eval_sums
+
+        acc = ep_eval_sums(model, self.test_shards, self.mesh, self.test_plans)
+        return (0.0 if acc is None else _rmse(*acc)), 0.0
+
+    def predict(self, model):
+        from ..parallel.ep import ep_predict_all
+
+        ds = self.test_dataset
+        if self._ys is None:
+            self._ys = np.array([ds.get(i).y for i in range(len(ds))], np.float32)
+        return ep_predict_all(model, self.test_shards, self.mesh, self.chunks,
+                              len(ds), self.test_plans), self._ys
+
+    def suffix(self) -> str:
+        return ""
+
+
+def _choose_path(train_dataset, test_dataset, model: torch.nn.Module,
+                 batch_size: int, batch_mode: str, flat_aggregate, dense_chunk: int,
+                 dense_layout: str, device, dense_buckets: int = 3,
+                 superbatch: int = 8, mesh=None, seed: int = 1, prefetch: int = 2):
+    """(path, model copy) of train_multiple_epochs, or of test_once when
+    `train_dataset` is None, after their refusals in their order. The copy
+    is on the path's device and, on the flat layout, set to the engine.
+    A flat engine named on the dense layout is refused by training and
+    moves test_once to the flat layout (it says so)."""
+    training = train_dataset is not None
     if batch_mode not in ("flat", "dense"):
         raise ValueError(f"unknown batch_mode {batch_mode!r} (flat|dense)")
-    return flat_engine(flat_aggregate)
-
-
-def _flat_model(model, engine: str):
-    """`model` (a copy) set to run the flat engine `engine`: IGMC's
-    cfg.flat_aggregate; the other families run the segment engine only."""
-    if isinstance(model, IGMC):
-        model.cfg = dataclasses.replace(model.cfg, flat_aggregate=engine)
-    elif engine != "segment":
-        raise ValueError(f"flat_aggregate={engine!r} applies to the R-GCN trunk of "
-                         f"IGMC, not to {type(model).__name__}")
-    return model
-
-
-def _plan_geometry(model, engine: str) -> dict:
-    """The loader's plan geometry for the flat engine `engine`: the pallas
-    engine's plans are chunked by the model's cfg.pallas_rows, which the
-    forward requires; the other engines keep the loader's default."""
-    return dict(plan_rows=model.cfg.pallas_rows) if engine == "pallas" else {}
-
-
-def _check_host_layout(dense_layout: str):
-    if dense_layout != "unified":
+    planned = planned_engine(flat_aggregate)
+    if batch_mode == "dense" and planned is not None:
+        if training:
+            raise ValueError("flat_aggregate applies to batch_mode='flat'")
+        print("test_once: dense eval unavailable — flat_aggregate overrides "
+              "the layout; using the flat path")
+        batch_mode = "flat"
+    if mesh is not None and planned is not None:
+        raise ValueError("flat_aggregate is a single-device path")
+    D = 1 if mesh is None else mesh.size
+    # a dataset without packed arrays to keep on the device (dynamic data)
+    # runs the dense layout host-collated, both sets then
+    packed = all(hasattr(ds, "packed") for ds in (train_dataset, test_dataset)
+                 if ds is not None)
+    host_dense = batch_mode == "dense" and not packed
+    if training:
+        if mesh is not None and host_dense and batch_size % D:
+            raise ValueError(f"dynamic dense DP needs batch_size ({batch_size}) "
+                             f"divisible by the mesh size ({D})")
+        if dense_chunk and (batch_mode != "dense" or host_dense):
+            raise ValueError("dense_chunk needs batch_mode='dense' on static "
+                             "(packed) datasets")
+        if mesh is not None and batch_mode == "dense" and batch_size % D:
+            raise ValueError(f"dense DP needs batch_size ({batch_size}) divisible "
+                             f"by the mesh size ({D})")
+        if mesh is not None and dense_chunk:
+            raise ValueError("dense_chunk is single-device (use EP or dense-DP for "
+                             "multi-chip giant batches)")
+    if host_dense and dense_layout != "unified":
         raise ValueError(f"dense_layout={dense_layout!r} needs static (packed) "
                          f"datasets; host-collated dense batches are unified")
+    if batch_mode != "dense" or dense_chunk >= batch_size:
+        dense_chunk = 0  # nothing to stream
+    elif training and dense_chunk and batch_size % dense_chunk:
+        raise ValueError(f"dense_chunk ({dense_chunk}) must divide "
+                         f"batch_size ({batch_size})")
+    dev = resolve_device(device) if mesh is None else mesh.device
+    model = copy.deepcopy(model).to(dev)
+    if batch_mode == "flat":
+        set_flat_engine(model, flat_aggregate)
+    if packed and (batch_mode == "dense"
+                   or (planned is None and superbatch > 1 and mesh is None)):
+        dense = None if batch_mode == "flat" else (dense_layout, dense_buckets)
+        return _ResidentPath(train_dataset, test_dataset, batch_size, superbatch,
+                             dense_chunk, dense, dev, mesh, seed), model
+    # the pallas engine's plans are chunked by the model's cfg.pallas_rows,
+    # which its forward requires; the other engines keep the loader's
+    geometry = dict(plan_rows=model.cfg.pallas_rows) if planned == "pallas" else {}
+    loader_kw = dict(prefetch=prefetch, batch_mode=batch_mode,
+                     pin_memory=dev.type == "cuda", flat_aggregate=planned,
+                     n_devices=0 if mesh is None else D,
+                     rank=0 if mesh is None else mesh.rank, **geometry)
+    return _HostPath(train_dataset, test_dataset, batch_size, loader_kw, dev, mesh,
+                     seed), model
 
 
 def _start_profile(dev):
@@ -591,6 +772,100 @@ def _stop_profile(profiling, dev, profile_dir: str, epoch: int):
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.trace.json"))
     print(f"torch.profiler trace of epoch {epoch} written to {profile_dir}")
+
+
+def _run_epochs(state: TrainState, path, step_fn: Callable, mesh, *, epochs: int,
+                lr_decay_factor: float, lr_decay_step_size: int, test_freq: int,
+                logger: Optional[Callable], continue_from: Optional[int],
+                res_dir: Optional[str], profile_dir: Optional[str], progress: bool):
+    """The epochs of every path; returns (final test RMSE, `state`).
+
+    `continue_from` E reloads the model and optimizer checkpoints of epoch
+    E from `res_dir` (after a barrier on a mesh) and runs epochs E+1 to
+    `epochs`. Per epoch: the path's training pass with `step_fn` (the
+    epoch's order and noise are functions of the absolute epoch number),
+    the test RMSE every `test_freq` epochs (NaN otherwise), the history
+    entry (wall seconds, the path's host seconds), the epoch line (and the
+    path's suffix), the learning rate times `lr_decay_factor` after every
+    `lr_decay_step_size`-th epoch, then `logger(info, state)` and the
+    heartbeat. `profile_dir` traces the training pass of epoch start + 1.
+    On a mesh rank 0 alone prints, logs and beats, and every rank waits at
+    a barrier after the last epoch."""
+    model, optimizer, dev = state.model, state.optimizer, path.dev
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    start_epoch = 1
+    if continue_from is not None:
+        if mesh is not None:
+            mesh.barrier()
+        model.load_state_dict(load_checkpoint(
+            resolve_checkpoint(res_dir, "model", continue_from)))
+        optimizer.load_state_dict(load_optimizer_state(
+            resolve_checkpoint(res_dir, "optimizer", continue_from)))
+        start_epoch = continue_from + 1
+        epochs -= continue_from
+
+    rmses = []
+    t_start = time.perf_counter()
+    beat = Heartbeat("epochs", epochs) if progress and lead else None
+    for epoch in range(start_epoch, epochs + start_epoch):
+        t_epoch = time.perf_counter()
+        profiling = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
+                     and lead else None)
+        model.train()
+        train_loss, host_seconds = path.train(step_fn, epoch)
+        if profiling is not None:
+            _stop_profile(profiling, dev, profile_dir, epoch)
+        model.eval()
+        if epoch % test_freq != 0:
+            rmses.append(float("nan"))
+        else:
+            rmse, waited = path.rmse(model)
+            rmses.append(rmse)
+            host_seconds += waited
+        state.epoch = epoch
+        state.history.append({
+            "epoch": epoch, "seconds": time.perf_counter() - t_epoch,
+            "host_seconds": host_seconds})
+
+        info = {"epoch": epoch, "train_loss": train_loss, "test_rmse": rmses[-1]}
+        say("Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values())
+            + path.suffix())
+        # manual step decay, as the PyTorch reference's train_eval.py does
+        if epoch % lr_decay_step_size == 0:
+            set_learning_rate(optimizer,
+                              lr_decay_factor * get_learning_rate(optimizer))
+        if logger is not None and lead:
+            logger(info, state)
+        if beat is not None:
+            beat(epoch - start_epoch + 1)
+
+    if mesh is not None:
+        mesh.barrier()          # rank 0's checkpoints are written
+    duration = time.perf_counter() - t_start
+    say("Final Test RMSE: {:.6f}, Duration: {:.6f}".format(rmses[-1], duration))
+    return rmses[-1], state
+
+
+def _evaluate(path, model: torch.nn.Module, params: Optional[dict], ensemble: bool,
+              checkpoints, logger: Optional[Callable], lead: bool = True) -> float:
+    """test_once's tail on every path: the RMSE of `model` (`params`
+    loaded first) or, with `ensemble`, of the prediction mean of
+    `checkpoints`; with `lead`, printed and passed to `logger`."""
+    t_start = time.perf_counter()
+    if ensemble and checkpoints:
+        rmse = _ensemble_rmse(model, checkpoints, path.predict)
+    else:
+        if params is not None:
+            model.load_state_dict(params)
+        rmse, _ = path.rmse(model)
+    duration = time.perf_counter() - t_start
+    if lead:
+        print("Test Once RMSE: {:.6f}, Duration: {:.6f}".format(rmse, duration))
+        if logger is not None:
+            epoch_info = "test_once" if not ensemble else "ensemble"
+            logger({"epoch": epoch_info, "train_loss": 0, "test_rmse": rmse}, None)
+    return rmse
 
 
 def test_once(
@@ -624,58 +899,9 @@ def test_once(
     blocked and pallas over host-built plans. Runs on `device` (default
     "cuda"; raises without a CUDA device unless device="cpu"). The
     caller's model is not modified."""
-    flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
-    if batch_mode == "dense" and flat_aggregate is not None:
-        print("test_once: dense eval unavailable — flat_aggregate overrides "
-              "the layout; using the flat path")
-        batch_mode = "flat"
-    engine = _check_layout(batch_mode, flat_aggregate)
-    dev = resolve_device(device)
-    model = copy.deepcopy(model).to(dev).eval()
-    if batch_mode == "flat":
-        model = _flat_model(model, engine)
-    if batch_mode == "dense" and dense_chunk and dense_chunk < batch_size:
-        batch_size = dense_chunk
-    device_resident = (hasattr(test_dataset, "packed")
-                       and (batch_mode == "dense" or engine == "segment"))
-    if device_resident:
-        dd = DeviceDataset(test_dataset.packed, dev)
-        epoch = (DensePass.plan(plan_buckets(test_dataset, dense_layout),
-                                batch_size, 8, dev) if batch_mode == "dense"
-                 else FlatPass.plan(test_dataset, batch_size, 8, dev))
-        rmse_of = lambda m: dense_eval_rmse(make_eval_step(m), dd, epoch)
-        preds_of = lambda m: dense_predict_all(make_eval_step(m), dd, epoch)
-        ys = np.asarray(test_dataset.packed.y, np.float32)
-    else:
-        if batch_mode == "dense":
-            _check_host_layout(dense_layout)
-        loader = BatchLoader(test_dataset, batch_size, batch_mode=batch_mode,
-                             pin_memory=dev.type == "cuda",
-                             flat_aggregate=(None if batch_mode == "dense"
-                                             else flat_aggregate),
-                             **_plan_geometry(model, engine))
-        rmse_of = lambda m: eval_rmse(make_eval_step(m), loader, dev)
-    t_start = time.perf_counter()
-    if ensemble and checkpoints:
-        if device_resident:
-            outs = []
-            for ckpt in checkpoints:
-                model.load_state_dict(load_checkpoint(ckpt))
-                outs.append(preds_of(model))
-            mean_pred = np.stack(outs, axis=1).mean(axis=1)
-            rmse = math.sqrt(float(np.mean((mean_pred - ys) ** 2)))
-        else:
-            rmse = eval_rmse_ensemble(model, checkpoints, loader, dev)
-    else:
-        if params is not None:
-            model.load_state_dict(params)
-        rmse = rmse_of(model)
-    duration = time.perf_counter() - t_start
-    print("Test Once RMSE: {:.6f}, Duration: {:.6f}".format(rmse, duration))
-    if logger is not None:
-        epoch_info = "test_once" if not ensemble else "ensemble"
-        logger({"epoch": epoch_info, "train_loss": 0, "test_rmse": rmse}, None)
-    return rmse
+    path, model = _choose_path(None, test_dataset, model, batch_size, batch_mode,
+                               flat_aggregate, dense_chunk, dense_layout, device)
+    return _evaluate(path, model.eval(), params, ensemble, checkpoints, logger)
 
 
 def train_multiple_epochs(
@@ -746,171 +972,18 @@ def train_multiple_epochs(
     JAX package's refusals: a flat engine other than the segment one,
     `dense_chunk`, and a batch_size that does not divide by the mesh size.
     The returned TrainState is the same on every rank."""
-    flat_aggregate = _no_flat_engine(batch_mode, flat_aggregate)
-    engine = _check_layout(batch_mode, flat_aggregate)
-    if batch_mode == "dense" and flat_aggregate is not None:
-        raise ValueError("flat_aggregate applies to batch_mode='flat'")
-    if mesh is not None and flat_aggregate is not None:
-        raise ValueError("flat_aggregate is a single-device path")
-    D = 1 if mesh is None else mesh.size
-    # a dataset without packed arrays to keep on the device (dynamic data)
-    # runs the dense layout host-collated, both sets then
-    host_dense = batch_mode == "dense" and not (hasattr(train_dataset, "packed")
-                                                and hasattr(test_dataset, "packed"))
-    if mesh is not None and host_dense and batch_size % D:
-        raise ValueError(f"dynamic dense DP needs batch_size ({batch_size}) "
-                         f"divisible by the mesh size ({D})")
-    if dense_chunk and (batch_mode != "dense" or host_dense):
-        raise ValueError("dense_chunk needs batch_mode='dense' on static "
-                         "(packed) datasets")
-    if mesh is not None and batch_mode == "dense" and batch_size % D:
-        raise ValueError(f"dense DP needs batch_size ({batch_size}) divisible by "
-                         f"the mesh size ({D})")
-    if mesh is not None and dense_chunk:
-        raise ValueError("dense_chunk is single-device (use EP or dense-DP for "
-                         "multi-chip giant batches)")
-    if host_dense:
-        _check_host_layout(dense_layout)
-    if dense_chunk >= batch_size:
-        dense_chunk = 0  # nothing to stream
-    elif dense_chunk and batch_size % dense_chunk:
-        raise ValueError(f"dense_chunk ({dense_chunk}) must divide "
-                         f"batch_size ({batch_size})")
-    dev = resolve_device(device) if mesh is None else mesh.device
-    lead = mesh is None or mesh.rank == 0
-    say = print if lead else (lambda *a, **k: None)
-    model = copy.deepcopy(model).to(dev)
-    if batch_mode == "flat":
-        model = _flat_model(model, engine)
+    path, model = _choose_path(train_dataset, test_dataset, model, batch_size,
+                               batch_mode, flat_aggregate, dense_chunk, dense_layout,
+                               device, dense_buckets=dense_buckets,
+                               superbatch=superbatch, mesh=mesh, seed=seed,
+                               prefetch=prefetch)
     optimizer = make_optimizer(model.parameters(), lr, weight_decay)
-    state = TrainState(model=model, optimizer=optimizer)
-    packed = hasattr(train_dataset, "packed") and hasattr(test_dataset, "packed")
-    flat_resident = (batch_mode == "flat" and engine == "segment" and packed
-                     and superbatch > 1 and mesh is None)
-    device_resident = (batch_mode == "dense" and not host_dense) or flat_resident
-    if mesh is not None:
-        step_fn = (make_dp_row_step(model, optimizer, mesh, ARR) if device_resident
-                   else make_dp_train_step(model, optimizer, mesh, ARR))
-    else:
-        step_fn = (make_dense_row_step(model, optimizer, dense_chunk, ARR)
-                   if device_resident else make_train_step(model, optimizer, ARR))
-    eval_fn = make_eval_step(model)
-    if device_resident:
-        K = max(superbatch, 1)
-        dd_train = DeviceDataset(train_dataset.packed, dev)
-        dd_test = DeviceDataset(test_dataset.packed, dev)
-        if flat_resident:
-            test_pass = FlatPass.plan(test_dataset, batch_size, K, dev)
-        else:
-            tr_buckets = plan_buckets(train_dataset, dense_layout, dense_buckets)
-            test_pass = DensePass.plan(
-                plan_buckets(test_dataset, dense_layout, dense_buckets),
-                dense_chunk or batch_size, K, dev)
-    else:
-        kw = dict(prefetch=prefetch, batch_mode="dense" if host_dense else "flat",
-                  pin_memory=dev.type == "cuda",
-                  flat_aggregate=None if host_dense else flat_aggregate,
-                  n_devices=0 if mesh is None else D,
-                  rank=0 if mesh is None else mesh.rank,
-                  **_plan_geometry(model, engine))
-        train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
-                                   seed=seed, **kw)
-        test_loader = BatchLoader(test_dataset, batch_size, **kw)
-
-    start_epoch = 1
-    if continue_from is not None:
-        if mesh is not None:
-            mesh.barrier()
-        model.load_state_dict(load_checkpoint(
-            resolve_checkpoint(res_dir, "model", continue_from)))
-        optimizer.load_state_dict(load_optimizer_state(
-            resolve_checkpoint(res_dir, "optimizer", continue_from)))
-        start_epoch = continue_from + 1
-        epochs -= continue_from
-
-    rmses = []
-    t_start = time.perf_counter()
-    beat = Heartbeat("epochs", epochs) if progress and lead else None
-    for epoch in range(start_epoch, epochs + start_epoch):
-        t_epoch = time.perf_counter()
-        noise_gen = _noise_generator(seed, epoch)
-        profiling = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
-                     and lead else None)
-        model.train()
-        if device_resident:
-            # the JAX package's epoch rng: the same buckets' permutations
-            # and unit order for a given (seed, epoch)
-            rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
-            if flat_resident:
-                order = rng.permutation(len(train_dataset)).astype(np.int64)
-                train_pass = FlatPass.plan(train_dataset, batch_size, K, dev, order)
-            else:
-                train_pass = DensePass.plan(tr_buckets, batch_size, K, dev, rng)
-            host_seconds = time.perf_counter() - t_epoch
-            train_loss = dense_train_epoch(step_fn, dd_train, train_pass,
-                                           noise_gen, len(train_dataset))
-        else:
-            # shuffle under the ABSOLUTE epoch number, so a resumed run
-            # replays the orders the uninterrupted run would have used
-            train_loader.epoch = epoch
-            timed_train, timed_test = _Timed(train_loader), _Timed(test_loader)
-            train_loss = train_epoch(step_fn, timed_train, noise_gen,
-                                     len(train_dataset), dev, mesh)
-        if profiling is not None:
-            _stop_profile(profiling, dev, profile_dir, epoch)
-        model.eval()
-        if epoch % test_freq != 0:
-            rmses.append(float("nan"))
-        elif device_resident:
-            rmses.append(dense_eval_rmse(eval_fn, dd_test, test_pass, mesh=mesh))
-        else:
-            rmses.append(eval_rmse(eval_fn, timed_test, dev, mesh))
-        if not device_resident:
-            host_seconds = timed_train.seconds + timed_test.seconds
-        state.epoch = epoch
-        state.history.append({
-            "epoch": epoch, "seconds": time.perf_counter() - t_epoch,
-            "host_seconds": host_seconds})
-
-        info = {"epoch": epoch, "train_loss": train_loss, "test_rmse": rmses[-1]}
-        msg = "Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values())
-        if not device_resident and train_loader.ladder_overflows:
-            msg += f" [ladder overflows: {train_loader.ladder_overflows}]"
-        say(msg)
-        # manual step decay, as the PyTorch reference's train_eval.py does
-        if epoch % lr_decay_step_size == 0:
-            set_learning_rate(optimizer,
-                              lr_decay_factor * get_learning_rate(optimizer))
-        if logger is not None and lead:
-            logger(info, state)
-        if beat is not None:
-            beat(epoch - start_epoch + 1)
-
-    if mesh is not None:
-        mesh.barrier()          # rank 0's checkpoints are written
-    duration = time.perf_counter() - t_start
-    say("Final Test RMSE: {:.6f}, Duration: {:.6f}".format(rmses[-1], duration))
-    return rmses[-1], state
-
-
-def _ep_shards(dataset, batch_size: int, mesh, local_aggregate: str):
-    """(shards, blocked plans or None, gid chunks) of a dataset's EP giant
-    batches on this rank (build_ep_batches; with local_aggregate 'blocked'
-    the blocked plans, aligned to one block-count shape)."""
-    from ..parallel.ep import (build_ep_batches, build_ep_blocked, ep_shard,
-                               max_ep_blocked_blocks, pad_ep_blocked)
-
-    if local_aggregate not in ("segment", "blocked"):
-        raise ValueError(f"unknown EP local_aggregate {local_aggregate!r}")
-    eps, chunks = build_ep_batches(dataset, batch_size, mesh.size)
-    plans = None
-    if local_aggregate == "blocked":
-        built = [build_ep_blocked(e) for e in eps]
-        if len(built) > 1:
-            targets = max_ep_blocked_blocks(built)
-            built = [pad_ep_blocked(p, targets) for p in built]
-        plans = [p.shard(mesh.rank, mesh.device) for p in built]
-    return [ep_shard(e, mesh.rank, mesh.device) for e in eps], plans, chunks
+    return _run_epochs(TrainState(model=model, optimizer=optimizer), path,
+                       path.step(model, optimizer, ARR), mesh, epochs=epochs,
+                       lr_decay_factor=lr_decay_factor,
+                       lr_decay_step_size=lr_decay_step_size, test_freq=test_freq,
+                       logger=logger, continue_from=continue_from, res_dir=res_dir,
+                       profile_dir=profile_dir, progress=progress)
 
 
 def train_multiple_epochs_ep(
@@ -946,69 +1019,16 @@ def train_multiple_epochs_ep(
     trained, on the mesh's device). Rank 0 alone prints and calls
     `logger` and, with `progress`, train_multiple_epochs' heartbeat.
     Returns (final RMSE, TrainState), the same on every rank."""
-    from ..parallel.ep import ep_eval_sums, ep_train_epoch, make_ep_train_step
-
-    dev = mesh.device
-    lead = mesh.rank == 0
-    say = print if lead else (lambda *a, **k: None)
-    model = copy.deepcopy(model).to(dev)
+    model = copy.deepcopy(model).to(mesh.device)
     optimizer = make_optimizer(model.parameters(), lr, weight_decay)
-    state = TrainState(model=model, optimizer=optimizer)
-    train_shards, train_plans, _ = _ep_shards(train_dataset, batch_size, mesh,
-                                              local_aggregate)
-    test_shards, test_plans, _ = _ep_shards(test_dataset, batch_size, mesh,
-                                            local_aggregate)
-    step_fn = make_ep_train_step(model, optimizer, mesh, ARR)
-
-    start_epoch = 1
-    if continue_from is not None:
-        mesh.barrier()
-        model.load_state_dict(load_checkpoint(
-            resolve_checkpoint(res_dir, "model", continue_from)))
-        optimizer.load_state_dict(load_optimizer_state(
-            resolve_checkpoint(res_dir, "optimizer", continue_from)))
-        start_epoch = continue_from + 1
-        epochs -= continue_from
-
-    rmses = []
-    t_start = time.perf_counter()
-    beat = Heartbeat("epochs", epochs) if progress and lead else None
-    for epoch in range(start_epoch, epochs + start_epoch):
-        t_epoch = time.perf_counter()
-        profiling = (_start_profile(dev) if profile_dir and epoch == start_epoch + 1
-                     and lead else None)
-        model.train()
-        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
-        total = ep_train_epoch(step_fn, train_shards, seed, epoch, rng, train_plans)
-        if profiling is not None:
-            _stop_profile(profiling, dev, profile_dir, epoch)
-        model.eval()
-        acc = (ep_eval_sums(model, test_shards, mesh, test_plans)
-               if epoch % test_freq == 0 else None)
-        train_loss = (0.0 if total is None
-                      else float(total) / max(len(train_dataset), 1))
-        if acc is not None:
-            rmses.append(math.sqrt(float(acc[0]) / max(float(acc[1]), 1.0)))
-        else:
-            rmses.append(0.0 if epoch % test_freq == 0 else float("nan"))
-        state.epoch = epoch
-        state.history.append({"epoch": epoch,
-                              "seconds": time.perf_counter() - t_epoch,
-                              "host_seconds": 0.0})
-        info = {"epoch": epoch, "train_loss": train_loss, "test_rmse": rmses[-1]}
-        say("Epoch {}, train loss {:.6f}, test rmse {:.6f}".format(*info.values()))
-        if epoch % lr_decay_step_size == 0:
-            set_learning_rate(optimizer,
-                              lr_decay_factor * get_learning_rate(optimizer))
-        if logger is not None and lead:
-            logger(info, state)
-        if beat is not None:
-            beat(epoch - start_epoch + 1)
-
-    mesh.barrier()              # rank 0's checkpoints are written
-    duration = time.perf_counter() - t_start
-    say("Final Test RMSE: {:.6f}, Duration: {:.6f}".format(rmses[-1], duration))
-    return rmses[-1], state
+    path = _EdgePartitionedPath(train_dataset, test_dataset, batch_size, mesh,
+                                local_aggregate, seed)
+    return _run_epochs(TrainState(model=model, optimizer=optimizer), path,
+                       path.step(model, optimizer, ARR), mesh, epochs=epochs,
+                       lr_decay_factor=lr_decay_factor,
+                       lr_decay_step_size=lr_decay_step_size, test_freq=test_freq,
+                       logger=logger, continue_from=continue_from, res_dir=res_dir,
+                       profile_dir=profile_dir, progress=progress)
 
 
 def test_once_ep(
@@ -1026,32 +1046,7 @@ def test_once_ep(
     state_dict `params` loaded into a copy), or with `ensemble` the
     prediction mean of `checkpoints`. Every rank returns the RMSE; rank 0
     alone prints it and calls `logger`."""
-    from ..parallel.ep import ep_eval_sums, ep_predict_all
-
-    lead = mesh.rank == 0
-    shards, plans, chunks = _ep_shards(test_dataset, batch_size, mesh, local_aggregate)
+    path = _EdgePartitionedPath(None, test_dataset, batch_size, mesh, local_aggregate)
     model = copy.deepcopy(model).to(mesh.device).eval()
-    t_start = time.perf_counter()
-    if ensemble and checkpoints:
-        ys = np.array([test_dataset.get(i).y for i in range(len(test_dataset))],
-                      np.float32)
-        outs = []
-        for ckpt in checkpoints:
-            model.load_state_dict(load_checkpoint(ckpt))
-            outs.append(ep_predict_all(model, shards, mesh, chunks,
-                                       len(test_dataset), plans))
-        mean_pred = np.stack(outs, axis=1).mean(axis=1)
-        rmse = math.sqrt(float(np.mean((mean_pred - ys) ** 2)))
-    else:
-        if params is not None:
-            model.load_state_dict(params)
-        acc = ep_eval_sums(model, shards, mesh, plans)
-        rmse = (0.0 if acc is None
-                else math.sqrt(float(acc[0]) / max(float(acc[1]), 1.0)))
-    duration = time.perf_counter() - t_start
-    if lead:
-        print("Test Once RMSE: {:.6f}, Duration: {:.6f}".format(rmse, duration))
-        if logger is not None:
-            epoch_info = "test_once" if not ensemble else "ensemble"
-            logger({"epoch": epoch_info, "train_loss": 0, "test_rmse": rmse}, None)
-    return rmse
+    return _evaluate(path, model, params, ensemble, checkpoints, logger,
+                     lead=mesh.rank == 0)

@@ -28,6 +28,7 @@ import numpy as np
 
 from ..batching.dataset import BatchLoader
 from ..device import resolve_device
+from ..models.igmc import set_flat_engine
 from ..utils.pdf import Page
 
 PAGE_W, PAGE_H = 1440.0, 720.0            # 20 x 10 in
@@ -142,10 +143,10 @@ def predict(model, dataset, batch_size: int = 50, device="cuda"):
     as float32 NumPy arrays: a copy of `model` in eval mode on the flat
     segment engine over a plain flat BatchLoader (make_eval_step +
     predict_all)."""
-    from .loop import _flat_model, make_eval_step, predict_all
+    from .loop import make_eval_step, predict_all
 
     dev = resolve_device(device)
-    model = _flat_model(copy.deepcopy(model).to(dev).eval(), "segment")
+    model = set_flat_engine(copy.deepcopy(model).to(dev).eval(), "segment")
     loader = BatchLoader(dataset, batch_size, pin_memory=dev.type == "cuda")
     return predict_all(make_eval_step(model), loader, dev)
 

@@ -5,6 +5,7 @@ noise is derived in JAX the way igmc_forward draws it and handed to the
 port, so both sides drop the same edges and features."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -26,7 +27,9 @@ from igmc_tpu.train.torch_interop import load_reference_checkpoint
 from igmc_tpu.utils.logging import ResultsDir as JaxResultsDir
 from igmc_tpu.utils.logging import make_logger as jax_make_logger
 
-from igmc_torch.batching import BatchLoader, StaticGraphDataset
+from igmc_torch.batching import (BatchLoader, DynamicGraphDataset, StaticGraphDataset,
+                                 flat_engine)
+from igmc_torch.cli.main import build_parser, choose_layouts
 from igmc_torch.data import create_trainvaltest_split
 from igmc_torch.models import IGMC, IGMCConfig, arr_regularizer, draw_noise
 from igmc_torch.parallel import Mesh
@@ -34,6 +37,7 @@ from igmc_torch.train import (get_learning_rate, load_checkpoint,
                               load_optimizer_state, loss_fn, make_optimizer,
                               params_from_jax, set_learning_rate)
 from igmc_torch.train import loop as port_loop
+from igmc_torch.train import test_once as port_test_once
 from igmc_torch.train import train_multiple_epochs
 from igmc_torch.utils import ResultsDir, make_logger
 
@@ -83,7 +87,8 @@ def jax_noise(key, batch_size=BATCH):
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     """(JAX, port) datasets of 100 training and 100 held-out pairs of a
-    300 x 400, 8,000-rating ml_1m fixture (h 1, at most 100 nodes per hop)."""
+    300 x 400, 8,000-rating ml_1m fixture (h 1, at most 100 nodes per hop),
+    and the port's dynamic datasets of the same pairs (`<part>_dynamic`)."""
     root = tmp_path_factory.mktemp("raw")
     write_ml1m_format(str(root), n_users=300, n_movies=400, n_ratings=8000,
                       seed=0)
@@ -106,6 +111,9 @@ def data(tmp_path_factory):
                                max_nodes_per_hop=100,
                                class_values=gs.class_values, max_num=N_PAIRS,
                                backend="numpy"))
+        out[f"{part}_dynamic"] = DynamicGraphDataset(
+            gs.adj_train, links, labels, h=1, max_nodes_per_hop=100,
+            class_values=gs.class_values, max_num=N_PAIRS, backend="numpy")
     return out
 
 
@@ -336,3 +344,140 @@ def test_draw_noise_is_seeded_and_shaped():
     assert a[0] == b[0] and torch.equal(a[1], b[1])
     assert 0 <= a[0] < 2**31 - 1 and isinstance(a[0], int)
     assert a[1].shape == (7, HIDDEN) and a[1].dtype == torch.bool
+
+
+EPOCH_LINE = re.compile(r"^Epoch (\d+), train loss \d+\.\d{6}, test rmse \d+\.\d{6}"
+                        r"( \[ladder overflows: \d+\])?$")
+LOG_LINE = re.compile(r"^Epoch (\d+), train loss \d+\.\d{4}, test rmse \d+\.\d{6}$")
+
+
+@pytest.mark.parametrize("kind,kw,path", [
+    ("static", dict(batch_mode="dense", dense_layout="unified"), "_ResidentPath"),
+    ("static", dict(batch_mode="dense", dense_layout="bipartite"), "_ResidentPath"),
+    ("static", dict(batch_mode="dense", dense_chunk=BATCH // 2), "_ResidentPath"),
+    ("static", dict(batch_mode="flat"), "_ResidentPath"),
+    ("static", dict(batch_mode="flat", superbatch=1), "_HostPath"),
+    ("static", dict(flat_aggregate="blocked"), "_HostPath"),
+    ("static", dict(flat_aggregate="pallas"), "_HostPath"),
+    ("dynamic", dict(batch_mode="dense"), "_HostPath"),
+], ids=["dense-unified", "dense-bipartite", "dense-chunk", "flat-resident",
+        "flat-host", "blocked", "pallas", "dynamic-dense"])
+def test_every_path_runs_the_one_epoch_loop(data, monkeypatch, capsys, tmp_path,
+                                            kind, kw, path):
+    """Each single-device path of train_multiple_epochs (the one it is meant
+    to take) under the shared epoch loop: two epochs with checkpoints, and
+    a run resumed from epoch 1's gives epoch 2's train loss and test RMSE
+    and the final RMSE exactly; the LR after two decays of 0.1 is the
+    float32-rounded 1e-5; every history entry has epoch, seconds and
+    host_seconds; the stdout lines and log.txt lines have the formats the
+    CLI's tests read."""
+    sfx = "" if kind == "static" else "_dynamic"
+    train, test = data["train" + sfx], data["test" + sfx]
+    if kind == "static":
+        train, test = train[1], test[1]
+    chosen, choose = [], port_loop._choose_path
+
+    def spy(*a, **k):
+        out = choose(*a, **k)
+        chosen.append(type(out[0]).__name__)
+        return out
+    monkeypatch.setattr(port_loop, "_choose_path", spy)
+    model = IGMC(port_cfg(), torch.Generator().manual_seed(3))
+    res = ResultsDir(str(tmp_path), "ml_1m", "_paths", True)
+    save = make_logger(res, 1)
+    common = dict(epochs=2, batch_size=BATCH, lr=1e-3, lr_decay_factor=0.1,
+                  lr_decay_step_size=1, ARR=0.001, seed=5, device="cpu",
+                  progress=False, **kw)
+
+    def run(**more):
+        infos = []
+
+        def log(info, state):
+            infos.append(dict(info))
+            save(info, state)
+        rmse, state = train_multiple_epochs(train, test, model, logger=log,
+                                            **common, **more)
+        return rmse, state, infos, capsys.readouterr().out.splitlines()
+
+    rmse, full, infos, out = run()
+    assert chosen[0] == path
+    lines = [l for l in out if l.startswith("Epoch")]
+    assert [EPOCH_LINE.match(l).group(1) for l in lines] == ["1", "2"], lines
+    assert [l for l in out if l.startswith("Final Test RMSE: ")]
+    with open(os.path.join(res.path, "log.txt")) as f:
+        logged = f.read().splitlines()
+    assert [LOG_LINE.match(l).group(1) for l in logged] == ["1", "2"], logged
+    assert [sorted(h) for h in full.history] == [["epoch", "host_seconds", "seconds"]] * 2
+    assert [h["epoch"] for h in full.history] == [1, 2] and full.epoch == 2
+    assert all(0.0 <= h["host_seconds"] <= h["seconds"] for h in full.history)
+    lr = float(np.float32(1e-3))
+    for _ in range(2):
+        lr = float(np.float32(0.1 * lr))
+    assert get_learning_rate(full.optimizer) == lr
+    assert np.isfinite(rmse) and rmse == infos[-1]["test_rmse"]
+
+    rmse2, resumed, rinfos, _ = run(continue_from=1, res_dir=res.path)
+    assert chosen[1] == path
+    assert rinfos == infos[1:] and rmse2 == rmse
+    assert [h["epoch"] for h in resumed.history] == [2]
+    assert get_learning_rate(resumed.optimizer) == lr
+
+
+def _engine_cfg(flat_aggregate):
+    return IGMCConfig(num_features=4, latent_dim=(32, 32, 32, 32), num_relations=5,
+                      num_bases=4, flat_aggregate=flat_aggregate)
+
+
+@pytest.mark.parametrize("name,engine", [
+    (None, "segment"), ("segment", "segment"), ("auto", "segment"),
+    ("blocked", "blocked"), ("pallas", "pallas"), ("fused", None)],
+    ids=["none", "segment", "auto", "blocked", "pallas", "unknown"])
+def test_flat_engine_spellings_resolve_alike(data, capsys, name, engine):
+    """A flat_aggregate value means one engine (or one refusal) everywhere
+    it is read: flat_engine, BatchLoader's plans, IGMCConfig's forward
+    (predictions equal the segment engine's to atol 1e-4), test_once (RMSE
+    within 1e-5 of the segment engine's), train_multiple_epochs (the model
+    copy set to the engine) and the CLI's choose_layouts (the flat layout
+    for a planned engine, else the dense one); an unknown name raises the
+    same ValueError from each, and the CLI's parser refuses it."""
+    train, test = data["train"][1], data["test"][1]
+    segment = IGMC(_engine_cfg("segment"), torch.Generator().manual_seed(2))
+    args = build_parser().parse_args([])
+    args.flat_aggregate = name
+    if engine is None:
+        calls = [lambda: flat_engine(name),
+                 lambda: BatchLoader(test, BATCH, flat_aggregate=name),
+                 lambda: IGMC(_engine_cfg(name), torch.Generator()).eval()(
+                     next(iter(BatchLoader(test, BATCH)))),
+                 lambda: port_test_once(test, segment, BATCH, flat_aggregate=name,
+                                   device="cpu"),
+                 lambda: train_multiple_epochs(train, test, segment, 1, BATCH, 1e-3,
+                                               0.1, 50, flat_aggregate=name,
+                                               device="cpu", progress=False),
+                 lambda: choose_layouts(args, train)]
+        for call in calls:
+            with pytest.raises(ValueError, match=f"unknown flat_aggregate {name!r}"):
+                call()
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(["--flat-aggregate", name])
+        return
+    planned = None if engine == "segment" else engine
+    assert flat_engine(name) == engine
+    loader = BatchLoader(test, BATCH, flat_aggregate=name)
+    assert loader.flat_aggregate == planned
+    batch = next(iter(loader))
+    assert (batch.blocked is not None, batch.aligned is not None) == (
+        engine == "blocked", engine == "pallas")
+    model = IGMC(_engine_cfg(name), torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        torch.testing.assert_close(model.eval()(batch), segment.eval()(batch),
+                                   rtol=0, atol=1e-4)
+    got = port_test_once(test, model, BATCH, flat_aggregate=name, device="cpu")
+    want = port_test_once(test, segment, BATCH, device="cpu")
+    assert abs(got - want) <= 1e-5, (got, want)
+    _, state = train_multiple_epochs(train, test, model, 1, BATCH, 1e-3, 0.1, 50,
+                                     flat_aggregate=name, device="cpu", progress=False)
+    assert state.model.cfg.flat_aggregate == engine
+    assert model.cfg.flat_aggregate == name           # the caller's is as it was
+    mode, fa, _ = choose_layouts(args, train)
+    assert (mode, fa) == ("dense" if planned is None else "flat", planned)
