@@ -21,6 +21,7 @@ Layout invariants:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -28,7 +29,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..graphs import native
 from ..graphs.extract import Subgraph
+from ..utils import spans
 
 # Host-collated edge keys of a dynamic dataset (no packed tables): graph
 # gid's edge j is gid * stride + j, distinct for every (gid, j) while a
@@ -169,93 +172,161 @@ def collate(
     `num_graphs`/`node_pad`/`edge_pad` must be >= the actual totals; the
     remainder is masked padding. `gids` (the graphs' dataset indices) and
     `edge_offsets` (a static dataset's packed offsets) key `edge_id` as the
-    module docstring says; padding edges get 0.
+    module docstring says; padding edges get 0. The graphs are packed
+    (batching/dataset.py _PackedGraphs) and collated by collate_packed's
+    engine.
     """
-    B = num_graphs
-    if len(graphs) > B:
-        raise ValueError(f"{len(graphs)} graphs > batch size {B}")
+    from .dataset import _PackedGraphs    # dataset.py imports this module
 
-    total_nodes = sum(g.num_nodes for g in graphs)
-    total_edges = sum(g.num_edges for g in graphs)  # doubled (fwd+rev)
-    if total_nodes > node_pad or total_edges > edge_pad:
-        raise ValueError(
-            f"batch needs ({total_nodes} nodes, {total_edges} edges) "
-            f"> pad ({node_pad}, {edge_pad})"
-        )
+    if len(graphs) > num_graphs:
+        raise ValueError(f"{len(graphs)} graphs > batch size {num_graphs}")
+    packed = _PackedGraphs(graphs)
+    return _collate_rows(packed, np.arange(len(graphs), dtype=np.int64), num_graphs,
+                         node_pad, edge_pad, _edge_id_base(gids, edge_offsets))
 
-    node_label = np.zeros(node_pad, dtype=np.int32)
-    node2graph = np.zeros(node_pad, dtype=np.int32)
-    node_mask = np.zeros(node_pad, dtype=bool)
-    edge_src = np.zeros(edge_pad, dtype=np.int32)
-    edge_dst = np.zeros(edge_pad, dtype=np.int32)
-    edge_type = np.zeros(edge_pad, dtype=np.int32)
-    edge_canon = np.arange(edge_pad, dtype=np.int32)
-    edge_mask = np.zeros(edge_pad, dtype=bool)
-    y = np.zeros(B, dtype=np.float32)
-    graph_mask = np.zeros(B, dtype=bool)
-    target_u = np.zeros(B, dtype=np.int32)
-    target_v = np.zeros(B, dtype=np.int32)
-    u_feat, v_feat = _feature_tables(graphs, B)
-    edge_id = np.zeros(edge_pad, dtype=np.int64)
+
+def collate_packed(packed, gids, num_graphs: int, node_pad: int, edge_pad: int,
+                   edge_offsets: Optional[np.ndarray] = None) -> GraphBatch:
+    """collate of the graphs at rows `gids` of packed tables (batching/
+    dataset.py _PackedGraphs; None: every row in order), with `gids` and
+    `edge_offsets` keying `edge_id` as collate's do, without building a
+    Subgraph. The engine is the C++ one (native/extract.cpp
+    igmc_collate_flat: one pass, the interpreter lock released) when its
+    library loads, else a vectorised NumPy form; both give collate's
+    arrays, and the counter batch.collate_native / batch.collate_numpy
+    (utils/spans.py) counts the batch."""
+    rows = (np.arange(len(packed), dtype=np.int64) if gids is None
+            else np.asarray(gids, dtype=np.int64))
+    if len(rows) > num_graphs:
+        raise ValueError(f"{len(rows)} graphs > batch size {num_graphs}")
+    if len(rows) and (rows.min() < 0 or rows.max() >= len(packed)):
+        raise IndexError(f"graph rows outside [0, {len(packed)})")
+    return _collate_rows(packed, rows, num_graphs, node_pad, edge_pad,
+                         _edge_id_base(gids, edge_offsets))
+
+
+def _edge_id_base(gids, edge_offsets) -> Optional[np.ndarray]:
+    """Each graph's edge-id base (its edge j gets base + j): its packed
+    offset, gid * DYNAMIC_EDGE_STRIDE without offsets; None without gids
+    (an edge's id is then its forward slot)."""
     if gids is None:
-        base = None
+        return None
+    gids = np.asarray(gids, dtype=np.int64)
+    return (gids * DYNAMIC_EDGE_STRIDE if edge_offsets is None
+            else np.asarray(edge_offsets, dtype=np.int64)[gids])
+
+
+# collate's arrays: (name, dtype, length: 0 node_pad, 1 edge_pad, 2 num_graphs)
+_BATCH_ARRAYS = (
+    ("node_label", np.int32, 0), ("node2graph", np.int32, 0), ("node_mask", bool, 0),
+    ("edge_src", np.int32, 1), ("edge_dst", np.int32, 1), ("edge_type", np.int32, 1),
+    ("edge_canon", np.int32, 1), ("edge_mask", bool, 1), ("edge_id", np.int64, 1),
+    ("y", np.float32, 2), ("graph_mask", bool, 2), ("target_u", np.int32, 2),
+    ("target_v", np.int32, 2),
+)
+
+
+def _over_pad(nodes: int, edges: int, node_pad: int, edge_pad: int) -> ValueError:
+    return ValueError(f"batch needs ({nodes} nodes, {edges} edges) "
+                      f"> pad ({node_pad}, {edge_pad})")
+
+
+def _collate_rows(packed, rows, num_graphs, node_pad, edge_pad, id_base) -> GraphBatch:
+    if id_base is not None and len(id_base) != len(rows):
+        raise ValueError(f"{len(id_base)} graph ids for {len(rows)} graphs")
+    sizes = (node_pad, edge_pad, num_graphs)
+    if native.available():
+        out = {name: np.empty(sizes[n], dtype) for name, dtype, n in _BATCH_ARRAYS}
+        _collate_native(packed, rows, id_base, sizes, out)
+        engine = "native"
     else:
-        gids = np.asarray(gids, dtype=np.int64)
-        base = (gids * DYNAMIC_EDGE_STRIDE if edge_offsets is None
-                else np.asarray(edge_offsets, dtype=np.int64)[gids])
-
-    n_off = 0
-    e_off = 0
-    for gi, g in enumerate(graphs):
-        n = g.num_nodes
-        ne = len(g.src)  # forward edges
-        node_label[n_off : n_off + n] = g.node_label
-        node2graph[n_off : n_off + n] = gi
-        node_mask[n_off : n_off + n] = True
-        # forward block
-        edge_src[e_off : e_off + ne] = g.src + n_off
-        edge_dst[e_off : e_off + ne] = g.dst + n_off
-        edge_type[e_off : e_off + ne] = g.etype
-        # reverse block
-        edge_src[e_off + ne : e_off + 2 * ne] = g.dst + n_off
-        edge_dst[e_off + ne : e_off + 2 * ne] = g.src + n_off
-        edge_type[e_off + ne : e_off + 2 * ne] = g.etype
-        edge_canon[e_off + ne : e_off + 2 * ne] = np.arange(
-            e_off, e_off + ne, dtype=np.int32
-        )
-        edge_mask[e_off : e_off + 2 * ne] = True
-        fwd_id = (np.arange(e_off, e_off + ne) if base is None
-                  else base[gi] + np.arange(ne))
-        edge_id[e_off : e_off + ne] = fwd_id
-        edge_id[e_off + ne : e_off + 2 * ne] = fwd_id
-        y[gi] = g.y
-        graph_mask[gi] = True
-        target_u[gi] = n_off            # target user is first user node
-        target_v[gi] = n_off + g.num_u  # target item is first item node
-        if u_feat is not None:
-            u_feat[gi] = g.u_feat
-            v_feat[gi] = g.v_feat
-        n_off += n
-        e_off += 2 * ne
-
+        out = {name: np.zeros(sizes[n], dtype) for name, dtype, n in _BATCH_ARRAYS}
+        _collate_numpy(packed, rows, id_base, sizes, out)
+        engine = "numpy"
+    spans.count(f"batch.collate_{engine}")
+    u_feat = v_feat = None
+    if len(rows) and packed.u_feat is not None:
+        u_feat = np.zeros((num_graphs, packed.u_feat.shape[1]), np.float32)
+        v_feat = np.zeros((num_graphs, packed.v_feat.shape[1]), np.float32)
+        u_feat[: len(rows)] = packed.u_feat[rows]
+        v_feat[: len(rows)] = packed.v_feat[rows]
     t = torch.from_numpy
-    return GraphBatch(
-        node_label=t(node_label),
-        edge_src=t(edge_src),
-        edge_dst=t(edge_dst),
-        edge_type=t(edge_type),
-        edge_canon=t(edge_canon),
-        node2graph=t(node2graph),
-        node_mask=t(node_mask),
-        edge_mask=t(edge_mask),
-        y=t(y),
-        graph_mask=t(graph_mask),
-        target_u=t(target_u),
-        target_v=t(target_v),
-        u_feat=None if u_feat is None else t(u_feat),
-        v_feat=None if v_feat is None else t(v_feat),
-        edge_id=t(edge_id),
-    )
+    return GraphBatch(**{k: t(v) for k, v in out.items()},
+                      u_feat=None if u_feat is None else t(u_feat),
+                      v_feat=None if v_feat is None else t(v_feat))
+
+
+def _collate_native(packed, rows, id_base, sizes, out):
+    """_collate_rows' arrays in one call into the C++ engine."""
+    lib = native.load()
+    node_pad, edge_pad, num_graphs = sizes
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    i64 = lambda a: np.ascontiguousarray(a, dtype=np.int64)
+    tables = [i64(packed.node_offsets), i64(packed.edge_offsets),
+              i32(packed.node_label), i32(packed.src), i32(packed.dst),
+              i32(packed.etype), i32(packed.num_u),
+              np.ascontiguousarray(packed.y, dtype=np.float32)]
+    G = len(tables[7])
+    if (len(tables[0]) != G + 1 or len(tables[1]) != G + 1 or len(tables[6]) != G
+            or tables[0][-1] > len(tables[2])
+            or not tables[1][-1] <= min(len(tables[3]), len(tables[4]), len(tables[5]))):
+        raise ValueError("the packed tables do not match their offsets")
+    rows = i64(rows)
+    base = None if id_base is None else i64(id_base)
+    ptr = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+    totals = np.zeros(2, np.int64)
+    arrays = (ctypes.c_void_p * len(out))(*(a.ctypes.data for a in out.values()))
+    code = lib.igmc_collate_flat(*map(ptr, tables), G, ptr(rows), ptr(base), len(rows),
+                                 num_graphs, node_pad, edge_pad, ptr(totals), arrays)
+    if code == 2:
+        raise _over_pad(int(totals[0]), int(totals[1]), node_pad, edge_pad)
+    if code == 3:
+        raise IndexError(f"graph rows outside [0, {G})")
+    if code:
+        raise RuntimeError(f"igmc_collate_flat failed with code {code}")
+
+
+def _collate_numpy(packed, rows, id_base, sizes, out):
+    """_collate_rows' arrays as whole-array NumPy operations, into `out`
+    zeroed: each graph's nodes and forward edges gathered from the tables,
+    its edges' slots, shifts and ids repeated from per-graph offsets."""
+    node_pad, edge_pad, num_graphs = sizes
+    n = len(rows)
+    n_lo = packed.node_offsets[rows]
+    n_cnt = packed.node_offsets[rows + 1] - n_lo
+    e_lo = packed.edge_offsets[rows]
+    e_cnt = packed.edge_offsets[rows + 1] - e_lo      # forward edges
+    n_off = np.cumsum(n_cnt) - n_cnt                  # nodes before each graph
+    f_off = np.cumsum(e_cnt) - e_cnt                  # forward edges before it
+    nodes, fwd_edges = int(n_cnt.sum()), int(e_cnt.sum())
+    if nodes > node_pad or 2 * fwd_edges > edge_pad:
+        raise _over_pad(nodes, 2 * fwd_edges, node_pad, edge_pad)
+    graph = np.arange(n)
+    at = np.repeat(n_lo - n_off, n_cnt) + np.arange(nodes)
+    out["node_label"][:nodes] = packed.node_label[at]
+    out["node2graph"][:nodes] = np.repeat(graph, n_cnt)
+    out["node_mask"][:nodes] = True
+    of = np.repeat(graph, e_cnt)                       # each forward edge's graph
+    j = np.arange(fwd_edges) - f_off[of]               # its index in its graph
+    at = e_lo[of] + j
+    src = packed.src[at] + n_off[of]
+    dst = packed.dst[at] + n_off[of]
+    fwd = 2 * f_off[of] + j                            # its slot, then its reverse's
+    rev = fwd + e_cnt[of]
+    for name, f, r in (("edge_src", src, dst), ("edge_dst", dst, src),
+                       ("edge_type", packed.etype[at], packed.etype[at])):
+        out[name][fwd] = f
+        out[name][rev] = r
+    out["edge_canon"][:] = np.arange(edge_pad)
+    out["edge_canon"][rev] = fwd
+    out["edge_mask"][: 2 * fwd_edges] = True
+    ids = fwd if id_base is None else id_base[of] + j
+    out["edge_id"][fwd] = ids
+    out["edge_id"][rev] = ids
+    out["y"][:n] = packed.y[rows]
+    out["graph_mask"][:n] = True
+    out["target_u"][:n] = n_off                        # the target user: first user node
+    out["target_v"][:n] = n_off + packed.num_u[rows]   # the target item: first item node
 
 
 def _feature_tables(graphs: Sequence[Subgraph], num_graphs: int):

@@ -55,8 +55,8 @@ from ..kernels.rgcn_aggregate import (PLAN_EBLK, PLAN_ROWS, block_align_plans,
                                       plan_capacity_blocks)
 from ..ops.blocked import plan_blocked_edges
 from ..utils import spans
-from .batch import (GraphBatch, bucket_for, collate, pad_ladder, planned_engine,
-                    topk_sum_bound)
+from .batch import (GraphBatch, bucket_for, collate, collate_packed, pad_ladder,
+                    planned_engine, topk_sum_bound)
 from .dense import collate_dense
 
 # Compress .npz caches only up to this many raw bytes (zlib at ~3 MB/s
@@ -487,18 +487,29 @@ class BatchLoader:
                              gids=idxs, edge_offsets=(None if packed is None
                                                       else packed.edge_offsets))
 
-    def _make_batch_flat(self, graphs, idxs) -> GraphBatch:
+    def _make_batch_flat(self, idxs, graphs=None) -> GraphBatch:
+        """The flat batch of `idxs`: collated straight from the dataset's
+        packed tables (collate_packed, no Subgraph built), or from the
+        fetched `graphs` of a dataset without them."""
+        packed = getattr(self.dataset, "packed", None)
         with spans.span("loader.collate"):
-            node_pad = self._bucket(sum(g.num_nodes for g in graphs),
-                                    self.node_ladder, "node")
-            edge_pad = self._bucket(sum(g.num_edges for g in graphs),
-                                    self.edge_ladder, "edge")
+            if graphs is None:
+                nodes = packed.node_offsets[idxs + 1] - packed.node_offsets[idxs]
+                edges = packed.edge_offsets[idxs + 1] - packed.edge_offsets[idxs]
+                need_n, need_e = int(nodes.sum()), 2 * int(edges.sum())
+            else:
+                need_n = sum(g.num_nodes for g in graphs)
+                need_e = sum(g.num_edges for g in graphs)
+            node_pad = self._bucket(need_n, self.node_ladder, "node")
+            edge_pad = self._bucket(need_e, self.edge_ladder, "edge")
             if self.flat_aggregate == "pallas":
                 # the kernel's output chunking needs num_nodes % rows == 0
                 node_pad = -(-node_pad // self.plan_rows) * self.plan_rows
-            packed = getattr(self.dataset, "packed", None)
-            batch = collate(graphs, self.batch_size, node_pad, edge_pad, gids=idxs,
-                            edge_offsets=None if packed is None else packed.edge_offsets)
+            if graphs is None:
+                batch = collate_packed(packed, idxs, self.batch_size, node_pad,
+                                       edge_pad, edge_offsets=packed.edge_offsets)
+            else:
+                batch = collate(graphs, self.batch_size, node_pad, edge_pad, gids=idxs)
         if self.flat_aggregate is not None:
             self._plan(batch, node_pad, edge_pad)
         return batch
@@ -544,18 +555,23 @@ class BatchLoader:
         """The batch of dataset indices `idxs` (this rank's sub-batch of it
         with n_devices > 1); `index`, the batch's place in its pass, is the
         group of its spans (loader.fetch, loader.collate, loader.plan,
-        loader.pin; utils/spans.py)."""
+        loader.pin; utils/spans.py). A single-device flat batch of a
+        dataset with packed tables fetches no Subgraph (no loader.fetch)."""
         idxs = np.asarray(idxs, dtype=np.int64)
         if index is not None:
             spans.set_group(index)
-        with spans.span("loader.fetch"):
-            graphs = self._fetch(idxs)
-        if self.n_devices > 1:
-            batch = self._make_batch_dp(graphs, idxs)
-        elif self.batch_mode == "dense":
-            batch = self._make_batch_dense(graphs, idxs)
+        if (self.n_devices <= 1 and self.batch_mode == "flat"
+                and getattr(self.dataset, "packed", None) is not None):
+            batch = self._make_batch_flat(idxs)     # fetches nothing
         else:
-            batch = self._make_batch_flat(graphs, idxs)
+            with spans.span("loader.fetch"):
+                graphs = self._fetch(idxs)
+            if self.n_devices > 1:
+                batch = self._make_batch_dp(graphs, idxs)
+            elif self.batch_mode == "dense":
+                batch = self._make_batch_dense(graphs, idxs)
+            else:
+                batch = self._make_batch_flat(idxs, graphs)
         if self.pin_memory:
             with spans.span("loader.pin"):
                 batch = _map_tensors(batch, torch.Tensor.pin_memory)

@@ -1,6 +1,7 @@
 """ctypes binding of the C++ extraction engine (native/extract.cpp), whose
 library also builds the fused aggregate's block plans (igmc_plan_blocks,
-called by kernels/rgcn_aggregate.py block_align_plans).
+called by kernels/rgcn_aggregate.py block_align_plans) and collates flat
+batches (igmc_collate_flat, called by batching/batch.py collate_packed).
 
 Port of igmc_tpu/graphs/native.py and native_impl.py. The library is
 built with g++ on first use (native/build.py) and loaded once per
@@ -24,7 +25,7 @@ import numpy as np
 
 from .extract import Subgraph, side_features
 
-ABI_VERSION = 3  # must match igmc_extract_abi_version() in extract.cpp
+ABI_VERSION = 4  # must match igmc_extract_abi_version() in extract.cpp
 
 _LIB = None
 _ERROR = None      # why the library could not be built or loaded
@@ -92,6 +93,10 @@ def _declare(lib):
     lib.igmc_plan_blocks.argtypes = (
         [ct.c_void_p] * 5 + [ct.c_int32] + [ct.c_int64] * 5
         + [ct.c_int32, ct.c_void_p, ct.c_void_p])
+    lib.igmc_collate_flat.restype = ct.c_int32
+    lib.igmc_collate_flat.argtypes = (
+        [ct.c_void_p] * 8 + [ct.c_int64] + [ct.c_void_p] * 2 + [ct.c_int64] * 4
+        + [ct.c_void_p] * 2)
 
 
 def _as(arr, dtype):

@@ -24,7 +24,9 @@
 // The same library builds the fused R-GCN aggregate's block plans
 // (igmc_plan_blocks; igmc_torch/kernels/rgcn_aggregate.py
 // block_align_edges and its src-sorted twin) for a batch in one call, with
-// counting sorts: O(edges + nodes), no Python work per chunk or block.
+// counting sorts: O(edges + nodes), no Python work per chunk or block; and
+// collates a flat batch from the packed tables (igmc_collate_flat;
+// igmc_torch/batching/batch.py collate_packed) in one pass.
 
 #include <algorithm>
 #include <atomic>
@@ -421,9 +423,104 @@ int32_t igmc_plan_blocks(const int32_t* edge_src, const int32_t* edge_dst,
   return 0;
 }
 
+// One flat batch (igmc_torch/batching/batch.py collate_packed) of the `n`
+// graphs at rows `gids` of packed tables (`node_offsets` / `edge_offsets`
+// of n_packed + 1 entries over node_label / src, dst, etype; num_u, y of
+// n_packed), in one pass. Graph i's nodes follow graph i-1's; its `ne`
+// forward edges fill ne slots and their reverse copies the next ne, with
+// endpoints shifted by the nodes before it. Edge j of graph i gets id
+// id_base[i] + j, or its forward slot when id_base is NULL. `out` holds 13
+// caller-allocated arrays, every slot of which is written: node_label,
+// node2graph, node_mask (uint8) of node_pad; edge_src, edge_dst,
+// edge_type, edge_canon, edge_mask (uint8), edge_id (int64) of edge_pad;
+// y (float), graph_mask (uint8), target_u, target_v of num_graphs.
+// Padding is zero, but a padding edge's canon is its own slot and a
+// reverse copy's its forward slot. `totals` gets the batch's nodes and
+// directed edges. Returns 0, or 1 (more than num_graphs graphs), 2 (the
+// totals exceed node_pad or edge_pad), 3 (a gid outside [0, n_packed)).
+int32_t igmc_collate_flat(const int64_t* node_offsets, const int64_t* edge_offsets,
+                          const int32_t* node_label, const int32_t* src,
+                          const int32_t* dst, const int32_t* etype,
+                          const int32_t* num_u, const float* y_in, int64_t n_packed,
+                          const int64_t* gids, const int64_t* id_base, int64_t n,
+                          int64_t num_graphs, int64_t node_pad, int64_t edge_pad,
+                          int64_t* totals, void* const* out) {
+  if (n > num_graphs) return 1;
+  int64_t nodes = 0, edges = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t g = gids[i];
+    if (g < 0 || g >= n_packed) return 3;
+    nodes += node_offsets[g + 1] - node_offsets[g];
+    edges += 2 * (edge_offsets[g + 1] - edge_offsets[g]);
+  }
+  totals[0] = nodes;
+  totals[1] = edges;
+  if (nodes > node_pad || edges > edge_pad) return 2;
+
+  int32_t* o_label = (int32_t*)out[0];
+  int32_t* o_node2graph = (int32_t*)out[1];
+  uint8_t* o_node_mask = (uint8_t*)out[2];
+  int32_t* o_src = (int32_t*)out[3];
+  int32_t* o_dst = (int32_t*)out[4];
+  int32_t* o_type = (int32_t*)out[5];
+  int32_t* o_canon = (int32_t*)out[6];
+  uint8_t* o_edge_mask = (uint8_t*)out[7];
+  int64_t* o_id = (int64_t*)out[8];
+  float* o_y = (float*)out[9];
+  uint8_t* o_graph_mask = (uint8_t*)out[10];
+  int32_t* o_target_u = (int32_t*)out[11];
+  int32_t* o_target_v = (int32_t*)out[12];
+
+  int64_t n_off = 0, e_off = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t g = gids[i];
+    const int64_t ns = node_offsets[g], nn = node_offsets[g + 1] - ns;
+    const int64_t es = edge_offsets[g], ne = edge_offsets[g + 1] - es;
+    std::memcpy(o_label + n_off, node_label + ns, nn * sizeof(int32_t));
+    std::fill(o_node2graph + n_off, o_node2graph + n_off + nn, (int32_t)i);
+    std::memset(o_node_mask + n_off, 1, nn);
+    const int32_t shift = (int32_t)n_off;
+    for (int64_t j = 0; j < ne; ++j) {
+      const int64_t f = e_off + j, r = f + ne;
+      const int32_t s = src[es + j] + shift, d = dst[es + j] + shift;
+      const int64_t id = id_base ? id_base[i] + j : f;
+      o_src[f] = s;
+      o_dst[f] = d;
+      o_src[r] = d;
+      o_dst[r] = s;
+      o_type[f] = o_type[r] = etype[es + j];
+      o_canon[f] = (int32_t)f;
+      o_canon[r] = (int32_t)f;
+      o_id[f] = o_id[r] = id;
+    }
+    std::memset(o_edge_mask + e_off, 1, 2 * ne);
+    o_y[i] = y_in[g];
+    o_graph_mask[i] = 1;
+    o_target_u[i] = shift;               // the target user is the first user node
+    o_target_v[i] = shift + num_u[g];    // the target item the first item node
+    n_off += nn;
+    e_off += 2 * ne;
+  }
+  const int64_t pad_n = node_pad - n_off, pad_e = edge_pad - e_off, pad_g = num_graphs - n;
+  std::memset(o_label + n_off, 0, pad_n * sizeof(int32_t));
+  std::memset(o_node2graph + n_off, 0, pad_n * sizeof(int32_t));
+  std::memset(o_node_mask + n_off, 0, pad_n);
+  std::memset(o_src + e_off, 0, pad_e * sizeof(int32_t));
+  std::memset(o_dst + e_off, 0, pad_e * sizeof(int32_t));
+  std::memset(o_type + e_off, 0, pad_e * sizeof(int32_t));
+  for (int64_t e = e_off; e < edge_pad; ++e) o_canon[e] = (int32_t)e;
+  std::memset(o_edge_mask + e_off, 0, pad_e);
+  std::memset(o_id + e_off, 0, pad_e * sizeof(int64_t));
+  std::memset(o_y + n, 0, pad_g * sizeof(float));
+  std::memset(o_graph_mask + n, 0, pad_g);
+  std::memset(o_target_u + n, 0, pad_g * sizeof(int32_t));
+  std::memset(o_target_v + n, 0, pad_g * sizeof(int32_t));
+  return 0;
+}
+
 // Bump on any signature change; the ctypes loader refuses/rebuilds a .so
 // whose version (or absence of this symbol) does not match, instead of
 // calling through a misaligned ABI.
-int32_t igmc_extract_abi_version() { return 3; }
+int32_t igmc_extract_abi_version() { return 4; }
 
 }  // extern "C"

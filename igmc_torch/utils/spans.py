@@ -37,7 +37,9 @@ The program's spans and counters (PERF.md §3 names the metric each feeds):
     batch.edge_slots;
   * the loader's threads (batching/dataset.py): loader.fetch,
     loader.collate, loader.plan, loader.pin; counters loader.plans_native,
-    loader.plans_numpy (the block plans each engine built).
+    loader.plans_numpy (the block plans each engine built);
+  * collation (batching/batch.py): counters batch.collate_native,
+    batch.collate_numpy (the flat batches each engine collated).
 
 Thread-safe: the loader's prefetch threads record beside the main thread.
 The state is the process's, as the kernels' launch counters are.

@@ -240,9 +240,13 @@ def test_flat_pallas_pass_is_bit_identical_with_spans_on(dataset):
     assert s["train.fetch"]["calls"] == steps + 2
     for name in TRAIN[1:]:
         assert s[name]["calls"] == steps, name
-    for name in LOADER[:3]:
+    for name in LOADER[1:3]:
         assert s[name]["calls"] == steps, name
+    # the packed dataset's batches fetch no Subgraph; one collation each
+    assert "loader.fetch" not in s
     assert "loader.pin" not in s                     # pin_memory off
+    assert sum(snap["counters"].get(f"batch.collate_{e}", 0)
+               for e in ("native", "numpy")) == steps
     assert s["kernels.k1"]["calls"] == s["kernels.k2"]["calls"] == 4 * steps
     assert snap["counters"]["train.steps"] == steps
     # the edge counters read the batches the loader makes
@@ -258,7 +262,7 @@ def test_flat_pallas_pass_is_bit_identical_with_spans_on(dataset):
         if name != "train.fetch":
             assert [r.group for r in rec[name]] == [0, 1, 2] * 2, name
         assert all(r.thread == main and r.parent == -1 for r in rec[name]), name
-    for name in LOADER[:3]:
+    for name in LOADER[1:3]:
         assert sorted(r.group for r in rec[name]) == [0, 0, 1, 1, 2, 2], name
         assert all(r.thread != main for r in rec[name]), name
     fwd = {r.index for r in rec["train.forward"]}
