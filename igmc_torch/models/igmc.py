@@ -133,10 +133,7 @@ class IGMC(nn.Module):
         else:
             states = self._flat_states(batch, edge_noise)
         if self.cfg.side_features:
-            if batch.u_feat is None or batch.v_feat is None:
-                raise ValueError("side_features: the batch carries no u_feat / "
-                                 "v_feat (build the dataset with u_features and "
-                                 "v_features)")
+            check_side_features(batch)
             states = torch.cat([states, batch.u_feat, batch.v_feat], dim=1)
         h = F.relu(self.lin1(states))
         if self.training:
@@ -278,12 +275,7 @@ class IGMC(nn.Module):
             layer = lambda conv, h: rgcn_dense_adj_apply(conv, h, adj_f, adj_r,
                                                          cfg.aggr, cd, inv_deg)
         else:
-            if batch.rel_caps is not None:
-                plan = relslot_plan(batch.edge_src, batch.edge_dst, batch.rel_caps,
-                                    mask_f, mask_r, n, R, cfg.aggr, cd)
-            else:
-                plan = dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type,
-                                  mask_f, mask_r, n, R, cfg.aggr, cd)
+            plan = edge_plan(batch, cfg, mask_f, mask_r)
             layer = lambda conv, h: rgcn_dense_layer(conv, h, plan)
         item_row = 1 if batch.num_u is None else batch.num_u
         users, items = [], []
@@ -292,6 +284,26 @@ class IGMC(nn.Module):
             users.append(x[:, 0])
             items.append(x[:, item_row])
         return torch.cat(users + items, dim=1)
+
+
+def check_side_features(batch) -> None:
+    """Raise ValueError unless the batch carries its target rows' side
+    features (cfg.side_features)."""
+    if batch.u_feat is None or batch.v_feat is None:
+        raise ValueError("side_features: the batch carries no u_feat / v_feat "
+                         "(build the dataset with u_features and v_features)")
+
+
+def edge_plan(batch: DenseBatch, cfg, mask_f, mask_r):
+    """The DensePlan of a dense batch's edges under the edge strategies:
+    relslot_plan on a relation-slotted batch, else dense_plan. `cfg`
+    carries num_relations, aggr and compute_dtype."""
+    n, R, cd = batch.node_slot, cfg.num_relations, cfg.compute_dtype
+    if batch.rel_caps is not None:
+        return relslot_plan(batch.edge_src, batch.edge_dst, batch.rel_caps,
+                            mask_f, mask_r, n, R, cfg.aggr, cd)
+    return dense_plan(batch.edge_src, batch.edge_dst, batch.edge_type,
+                      mask_f, mask_r, n, R, cfg.aggr, cd)
 
 
 def dense_edge_masks(batch: DenseBatch, edge_noise, cfg, training: bool):

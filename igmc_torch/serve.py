@@ -21,8 +21,11 @@ num_relations / multiply_by in cfg, as `--transfer` does.
 Divergences by design from the JAX Predictor: the port compiles no
 program per shape, so the packed tables are not padded to a capacity
 ladder (`_cap` / `_pad_packed` keep XLA's cache keys steady there); the
-members of an ensemble run one after another per batch on the card and
-are averaged there. With a `mesh` (parallel/mesh.py, one process per
+members of an ensemble are folded once into one model whose channels are
+the members' (models/stacked.py), so that one forward a batch scores them
+all and averages them on the card (under bfloat16 or the adjacency
+strategy, which the fold does not cover, the members run one after
+another a batch). With a `mesh` (parallel/mesh.py, one process per
 device) every rank scores its B/D graphs of each batch and one all_gather
 at the end gives every rank the whole array (the JAX Predictor shards the
 gid block's graph axis over 'data').
@@ -43,6 +46,7 @@ from .device import resolve_device
 from .graphs.csr import BipartiteCSR
 from .graphs.native import resolve_backend
 from .models.igmc import IGMC
+from .models.stacked import StackedIGMC, stacks
 from .train.checkpoints import load_checkpoint, resolve_checkpoint
 from .parallel.dp import rank_columns
 from .train.loop import DensePass
@@ -116,6 +120,9 @@ class Predictor:
             model = IGMC(cfg, torch.Generator().manual_seed(0))
             model.load_state_dict(sd)
             self._members.append(model.to(self.device).eval())
+        # chosen once: one stacked forward of every member, or (bfloat16,
+        # the adjacency strategy) one forward per member
+        self._stacked = StackedIGMC(self._members) if stacks(cfg) else None
 
     @classmethod
     def from_results_dir(cls, res_dir: str, adj, class_values, cfg,
@@ -183,12 +190,15 @@ class Predictor:
     def score(self, ds: StaticGraphDataset) -> np.ndarray:
         """Ensemble-mean ratings of a packed dataset's graphs, in its order
         (the device half of `predict`): the tables are uploaded once, each
-        batch is assembled on the card, every member scores it there and
-        the mean is scattered into place; one fetch at the end. With a mesh
-        each rank scores its columns of every row, and the rows' means are
-        all-gathered once. Spans serve.upload, serve.buckets, serve.rows,
-        serve.members (the rows' assembly, the members and the means, and
-        a mesh's gather) and serve.fetch (the scatter and the one fetch)."""
+        batch is assembled on the card, one stacked forward scores it with
+        every member and averages them there (or, where the fold does not
+        apply, every member scores it in turn), and the mean is scattered
+        into place; one fetch at the end. With a mesh each rank scores its
+        columns of every row, and the rows' means are all-gathered once.
+        Spans serve.upload, serve.buckets, serve.rows, serve.members (the
+        rows' assembly, the forwards and the means, and a mesh's gather)
+        and serve.fetch (the scatter and the one fetch); counter
+        serve.member_forwards (1 a row folded, M a row in turn)."""
         G = len(ds)
         if G == 0:
             return np.zeros(0, np.float32)
@@ -203,8 +213,7 @@ class Predictor:
         with spans.span("serve.members"):
             cols = (slice(None) if self.mesh is None
                     else rank_columns(self.mesh, self.batch_size))
-            means = [torch.stack([m(batch) for m in self._members]).mean(0)
-                     for batch in rows.batches(dd, cols=cols)]
+            means = [self._mean(batch) for batch in rows.batches(dd, cols=cols)]
             if self.mesh is not None:
                 # [D * S, B/D] in rank order -> [S, B]: row i is rank 0's
                 # columns of row i, then rank 1's, ...
@@ -217,6 +226,15 @@ class Predictor:
             for gids, mean in zip(rows.gids, means):
                 preds.index_copy_(0, torch.where(gids >= 0, gids, G), mean)
             return preds[:G].cpu().numpy()
+
+    def _mean(self, batch) -> torch.Tensor:
+        """The members' mean rating of one batch, [B]: one stacked
+        forward, or one forward per member. Counter serve.member_forwards."""
+        if self._stacked is not None:
+            spans.count("serve.member_forwards")
+            return self._stacked(batch)
+        spans.count("serve.member_forwards", len(self._members))
+        return torch.stack([m(batch) for m in self._members]).mean(0)
 
     def predict(self, users, items) -> np.ndarray:
         """Ratings for the pairs (users[i], items[i]); shape [n] float32.

@@ -30,7 +30,10 @@ The program's spans and counters (PERF.md §3 names the metric each feeds):
 
   * serving (serve.py): serve.subgraphs (graphs.extract, graphs.pack),
     serve.upload, serve.buckets, serve.rows (pass.plan), serve.members
-    (pass.assemble), serve.fetch; counter serve.calls;
+    (pass.assemble), serve.fetch; counters serve.calls and
+    serve.member_forwards (the ensemble forwards run: one a row when the
+    members are folded into one stacked forward, M a row when they run
+    in turn);
   * training (train/loop.py): train.fetch, train.inputs, train.forward
     (kernels.k1), train.backward (kernels.k2), train.optimizer;
     pass.plan, pass.assemble; counters train.steps, batch.edges,

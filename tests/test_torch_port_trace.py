@@ -21,7 +21,8 @@ from igmc_torch.batching.device_data import DeviceDataset
 from igmc_torch.models import IGMC, IGMCConfig
 from igmc_torch.serve import Predictor
 from igmc_torch.train import (DensePass, make_dense_row_step, make_optimizer,
-                              make_train_step, plan_buckets, train_multiple_epochs)
+                              make_train_step, plan_buckets, save_pth,
+                              train_multiple_epochs)
 from igmc_torch.train.loop import dense_train_epoch, train_epoch
 from igmc_torch.utils import spans
 
@@ -299,15 +300,14 @@ def test_dense_pass_records_its_inputs_once_and_each_step(dataset):
     assert [r.group for r in rec["train.forward"]] == list(range(S))
 
 
-def test_predictor_scores_are_bit_identical_with_spans_on(dataset):
+def test_predictor_scores_are_bit_identical_with_spans_on(dataset, tmp_path):
     M = rating_matrix()
     cfg = IGMCConfig(num_relations=5, num_bases=4)
-    members = [IGMC(cfg, torch.Generator().manual_seed(s)).state_dict() for s in (1, 2)]
-    pred = Predictor(M, CLASS_VALUES, cfg, params=members[0], batch_size=BATCH,
+    paths = [str(tmp_path / f"model_{s}.pth") for s in (1, 2)]
+    for s, path in zip((1, 2), paths):
+        save_pth(path, IGMC(cfg, torch.Generator().manual_seed(s)).state_dict())
+    pred = Predictor(M, CLASS_VALUES, cfg, checkpoints=paths, batch_size=BATCH,
                      backend="numpy", device="cpu")
-    pred._members.append(IGMC(cfg, torch.Generator().manual_seed(0)))
-    pred._members[-1].load_state_dict(members[1])
-    pred._members[-1].eval()
     rng = np.random.default_rng(0)
     calls = [(rng.integers(0, 60, 80), rng.integers(0, 70, 80)) for _ in range(3)]
     off = [pred.predict(u, v) for u, v in calls]
@@ -323,6 +323,7 @@ def test_predictor_scores_are_bit_identical_with_spans_on(dataset):
         assert s[name]["calls"] == 3, name
     assert s["pass.assemble"]["calls"] == rows
     assert snap["counters"]["serve.calls"] == 3
+    assert snap["counters"]["serve.member_forwards"] == rows    # one stacked forward a row
     rec = by_name(snap["records"])
     for name in SERVE:
         assert [r.group for r in rec[name]] == [1, 2, 3], name
