@@ -353,8 +353,9 @@ def node_onehot(batch, num_features: int) -> torch.Tensor:
     return x * batch.node_mask[..., None].float()
 
 
-def _drop_edges(plan, edge_seed: int, cfg: IGMCConfig):
-    """`plan` with the hash edge dropout folded into its mask. The ukey
+def _drop_edges(plan, edge_seed, cfg: IGMCConfig):
+    """`plan` with the hash edge dropout of `edge_seed` (an int, or a 0-d
+    device tensor: hash_edge_keep) folded into its mask. The ukey
     stream keys the original orientation in both plans, so the dst- and
     src-sorted plans drop the same edges."""
     if len(plan) < 7 or plan[6] is None:

@@ -33,16 +33,19 @@ import torch
 _LOW32 = 0xFFFFFFFF
 
 
-def hash_edge_keep(seed: int, key_ids: torch.Tensor, p: float) -> torch.Tensor:
+def hash_edge_keep(seed, key_ids: torch.Tensor, p: float) -> torch.Tensor:
     """Bernoulli(1-p) keep decision per key, as a hash of (seed, key):
     bool tensor of key_ids' shape and device. `seed` is an int in
-    [0, 2**32); key_ids are non-negative integers. A key of 2**32 or more
-    (a dynamic dataset's host-collated dense edge keys) adds its high word,
-    times an odd constant, to the seed; for other keys that term is 0, and
-    the hash is the JAX package's."""
+    [0, 2**32), or a 0-d integer tensor on key_ids' device holding one
+    (the graphed training step's seed buffer: read on the device, no
+    sync), with the same keep bits; key_ids are non-negative integers. A
+    key of 2**32 or more (a dynamic dataset's host-collated dense edge
+    keys) adds its high word, times an odd constant, to the seed; for
+    other keys that term is 0, and the hash is the JAX package's."""
     k = key_ids.long()
+    s = seed.long() & _LOW32 if torch.is_tensor(seed) else int(seed) & _LOW32
     h = ((k & _LOW32) * 0x9E3779B9) & _LOW32
-    h = (h + (int(seed) & _LOW32) + (k >> 32).clamp_min(0) * 0x27D4EB2F) & _LOW32
+    h = (h + s + (k >> 32).clamp_min(0) * 0x27D4EB2F) & _LOW32
     h = h ^ (h >> 16)
     h = (h * 0x85EBCA6B) & _LOW32
     h = h ^ (h >> 13)

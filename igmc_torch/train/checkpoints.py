@@ -59,12 +59,18 @@ def save_optimizer_state(path: str, optimizer: torch.optim.Optimizer) -> None:
 
 def load_optimizer_state(path: str) -> dict:
     """The optimizer state_dict stored at `path`, on the CPU
-    (optimizer.load_state_dict moves it to the parameters' device). A JAX
-    `.ckpt` raises: optax's Adam state is not torch.optim's."""
+    (optimizer.load_state_dict moves it to the parameters' device), with
+    its groups' `capturable` flag left out: the graphed training step
+    (train/graphed.py) saves capturable Adam, which cannot step on the
+    CPU, and sets the flag itself again when it resumes. A JAX `.ckpt`
+    raises: optax's Adam state is not torch.optim's."""
     if path.endswith(".ckpt"):
         raise ValueError(
             f"{path}: the JAX package's optimizer checkpoint holds optax "
             f"state, which does not carry over to torch.optim; resume from a "
             f"run of igmc_torch, or start a new run from the model "
             f"checkpoint (--transfer)")
-    return torch.load(path, map_location="cpu", weights_only=True)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for group in state.get("param_groups", ()):
+        group.pop("capturable", None)
+    return state

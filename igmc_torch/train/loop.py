@@ -72,6 +72,7 @@ from ..models.igmc import arr_regularizer, draw_noise, set_flat_engine, slice_no
 from ..parallel.dp import make_dp_train_step, rank_columns, rank_noise
 from ..utils import spans
 from ..utils.progress import Heartbeat
+from . import graphed
 from .checkpoints import load_checkpoint, load_optimizer_state, resolve_checkpoint
 
 
@@ -124,7 +125,11 @@ def make_train_step(model, optimizer, ARR: float = 0.0) -> Callable:
     """(batch, noise) -> (loss, n) as tensors on the batch's device, after
     one optimizer step on the loss's gradient. Spans train.forward (the
     loss), train.backward and train.optimizer (`optimizer.step()`; the
-    `zero_grad` before the forward is in no span)."""
+    `zero_grad` before the forward is in no span).
+
+    An IGMC on the fused aggregate with its parameters on a card takes the
+    graphed step (train/graphed.py): one CUDA graph per input shape, this
+    eager step for each shape's first batch and for any other batch."""
 
     def step(batch, noise):
         optimizer.zero_grad(set_to_none=True)
@@ -136,6 +141,8 @@ def make_train_step(model, optimizer, ARR: float = 0.0) -> Callable:
             optimizer.step()
         return loss.detach(), n
 
+    if graphed.applies(model):
+        return graphed.GraphedStep(model, optimizer, ARR, step, loss_fn)
     return step
 
 

@@ -37,7 +37,9 @@ The program's spans and counters (PERF.md §3 names the metric each feeds):
   * training (train/loop.py): train.fetch, train.inputs, train.forward
     (kernels.k1), train.backward (kernels.k2), train.optimizer;
     pass.plan, pass.assemble; counters train.steps, batch.edges,
-    batch.edge_slots;
+    batch.edge_slots; the graphed step (train/graphed.py):
+    train.capture, train.replay, counters train.eager_steps,
+    train.graph_captures, train.graph_replays;
   * the loader's threads (batching/dataset.py): loader.fetch,
     loader.collate, loader.plan, loader.pin; counters loader.plans_native,
     loader.plans_numpy (the block plans each engine built);
